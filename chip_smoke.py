@@ -1,20 +1,20 @@
 """Smoke test of sedumi_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # kernels + solves (the full check)
-    python3 chip_smoke.py --kernels-only  # build and check the kernels only
+    python3 chip_smoke.py
 
 1. Kernel phase: builds every CUDA kernel of the port from csrc/ (one nvcc
    per source, in parallel) and holds each against its plain-PyTorch twin
    on the card at the shapes the solver gives it, with the tolerance
    stated; times both, and the card's least time (bound) for the work.
-2. Path phase: sedumi_tpu_torch.sedumi() on the bundled examples quantum,
-   nb, arch0 and control07 at full size, plus nb with one redundant
-   all-zero constraint (its Schur complement is singular, so every
-   iteration takes the masked-LDL' fallback).  Launch counts are zeroed
-   just before and read just after; every kernel must have launched.
-   quantum, nb and the redundant-row nb must pass the reference gate
-   (rel <= 1e-6 vs the published optimum, pinf = dinf = 0, numerr < 2);
-   arch0 and control07 must finish with finite outputs.
+2. Path phase: sedumi_tpu_torch.sedumi() on all six bundled examples at
+   full size (quantum, nb, arch0, control07, trto3, OH), plus nb with one
+   redundant all-zero constraint (its Schur complement is singular, so
+   every iteration takes the masked-LDL' fallback).  Launch counts are
+   zeroed just before and read just after; every kernel must have
+   launched.  quantum, nb and the redundant-row nb must pass the reference
+   gate (rel <= 1e-6 vs the published optimum, pinf = dinf = 0,
+   numerr < 2); the others must finish with finite outputs, and each
+   prints its rel, pinf, dinf and numerr.
 3. Prints {"kernels": [...]}, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.  Any failure exits non-zero
    before the last line.  Without a CUDA device it exits 1 at once.
@@ -271,12 +271,11 @@ def main() -> None:
     from sedumi_tpu_torch import kernels
     from sedumi_tpu_torch.examples import load_example
 
-    kernels_only = "--kernels-only" in sys.argv[1:]
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.time()
-    times = kernels.build_all(verbose=kernels_only)
+    times = kernels.build_all()
     print(f"built kernels in {time.time() - t0:.1f}s: "
           + ", ".join(f"{s} {t:.1f}s" for s, t in times.items()), flush=True)
 
@@ -284,28 +283,24 @@ def main() -> None:
     rows = [check_dd_residual(dev, gen), check_psd_coo(dev, gen),
             check_ldl_masked(dev, gen)]
 
-    if not kernels_only:
-        kernels.reset_launch_counts()
-        total = {k: 0 for k in kernels.LAUNCHES}
-        plan = [("quantum", True), ("nb", True), ("arch0", False),
-                ("control07", False)]
-        for name, gate in plan:
-            counts = run_example(load_example(name), gate)
-            if counts["dd_matvec_residual"] == 0:
-                fail(f"{name}: the compensated-residual kernel never ran")
-            if name == "arch0" and counts["psd_contrib_coo"] == 0:
-                fail("arch0: the sparse PSD Schur kernel never ran")
-        counts = run_example(with_zero_row(load_example("nb")), True)
-        if counts["ldl_masked"] == 0:
-            fail("nb+zero-row: the masked-LDL' fallback never ran")
-        total = dict(kernels.LAUNCHES)
-        for row in rows:
-            row["launches"] = total[row["name"]]
-            if row["launches"] == 0:
-                fail(f"kernel {row['name']} never launched on the path")
-    else:
-        for row in rows:
-            row["launches"] = 0
+    kernels.reset_launch_counts()
+    plan = [("quantum", True), ("nb", True), ("arch0", False),
+            ("control07", False), ("trto3", False),
+            ("OH_2Pi_STO-6GN9r12g1T2", False)]
+    for name, gate in plan:
+        counts = run_example(load_example(name), gate)
+        if counts["dd_matvec_residual"] == 0:
+            fail(f"{name}: the compensated-residual kernel never ran")
+        if name == "arch0" and counts["psd_contrib_coo"] == 0:
+            fail("arch0: the sparse PSD Schur kernel never ran")
+    counts = run_example(with_zero_row(load_example("nb")), True)
+    if counts["ldl_masked"] == 0:
+        fail("nb+zero-row: the masked-LDL' fallback never ran")
+    total = dict(kernels.LAUNCHES)
+    for row in rows:
+        row["launches"] = total[row["name"]]
+        if row["launches"] == 0:
+            fail(f"kernel {row['name']} never launched on the path")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -317,9 +312,6 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    if kernels_only:
-        print("kernels-only run: no result line", flush=True)
-        sys.exit(3)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -72,7 +72,7 @@ def _lib_path(src: str) -> Path:
     return BUILD_DIR / f"{Path(src).stem}_{tag}.so"
 
 
-def build_all(sources=None, verbose: bool = False) -> dict[str, float]:
+def build_all(sources=None) -> dict[str, float]:
     """Compile every missing library, one nvcc per source in parallel.
     Returns {source: seconds} of the builds that ran; raises with the
     compiler's output if any build fails."""
@@ -85,8 +85,7 @@ def build_all(sources=None, verbose: bool = False) -> dict[str, float]:
     for src in todo:
         out = _lib_path(src)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-               "-o", str(tmp), str(SRC_DIR / src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / src)]
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT), tmp, out)
     times, errors = {}, []
@@ -96,8 +95,6 @@ def build_all(sources=None, verbose: bool = False) -> dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src}:\n{log}")
             continue
-        if verbose and log.strip():
-            print(f"[nvcc {src}]\n{log}")
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
