@@ -5,16 +5,18 @@
 1. Kernel phase: builds every CUDA kernel of the port from csrc/ (one nvcc
    per source, in parallel) and holds each against its plain-PyTorch twin
    on the card at the shapes the solver gives it, with the tolerance
-   stated; times both, and the card's least time (bound) for the work.
+   stated (K1, K2, K6 within error bounds; K3, K4, K5, K7 bit for bit);
+   times both, and the card's least time (bound) for the work.
 2. Path phase: sedumi_tpu_torch.sedumi() on all six bundled examples at
    full size (quantum, nb, arch0, control07, trto3, OH), plus nb with one
    redundant all-zero constraint (its Schur complement is singular, so
    every iteration takes the masked-LDL' fallback).  Launch counts are
    zeroed just before and read just after; every kernel must have
-   launched.  quantum, nb and the redundant-row nb must pass the reference
-   gate (rel <= 1e-6 vs the published optimum, pinf = dinf = 0,
+   launched.  arch0 must enter the dd64 phase and launch K4-K7 in its
+   solve.  quantum, nb, arch0 and the redundant-row nb must pass the
+   reference gate (rel <= 1e-6 vs the published optimum, pinf = dinf = 0,
    numerr < 2); the others must finish with finite outputs, and each
-   prints its rel, pinf, dinf and numerr.
+   prints its rel, pinf, dinf, numerr and phases.
 3. Prints {"kernels": [...]}, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.  Any failure exits non-zero
    before the last line.  Without a CUDA device it exits 1 at once.
@@ -218,6 +220,249 @@ def check_ldl_masked(dev, gen):
                 bound_by=b_by, library_ms=None)
 
 
+def wide_matrix(shape, gen) -> torch.Tensor:
+    """Gaussian entries scaled over 2^-20..2^20, every 7th an exact power
+    of two (frexp's f == 0.5 case), every 11th zero."""
+    a = torch.randn(*shape, generator=gen, dtype=torch.float64)
+    a = a * torch.exp2(torch.randint(-20, 21, shape, generator=gen)
+                       .to(torch.float64))
+    flat = a.view(-1)
+    flat[::7] = torch.exp2(torch.randint(-20, 21, flat[::7].shape,
+                                         generator=gen).to(torch.float64))
+    flat[::11] = 0.0
+    return a
+
+
+def bit_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, float]:
+    """(bit-identical, max |a - b| over finite entries)."""
+    same = a.shape == b.shape and bool(torch.equal(
+        a.contiguous().view(torch.int64), b.contiguous().view(torch.int64)))
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    err = float(torch.abs(a[fin] - b[fin]).max()) if bool(fin.any()) else 0.0
+    return same, err
+
+
+def check_ozaki_split(dev, gen):
+    """K4 on control07's Gram operand B (667 x 16384, per-row scale, and
+    its transpose, which the dd Gram splits per column), on arch0's
+    congruence input (175*161 x 161) and on an R_k (161 x 161, per
+    column): bit for bit against the plain version."""
+    from sedumi_tpu_torch import ddlinalg as dd
+    from sedumi_tpu_torch import kernels
+
+    B = wide_matrix((667, 16384), gen).to(dev)
+    Ak = wide_matrix((175 * 161, 161), gen).to(dev)
+    Rk = wide_matrix((161, 161), gen).to(dev)
+    cases = [("B", B, 16384, -1), ("B'", B.T, 16384, 0),
+             ("A_k", Ak, 161, -1), ("R_k", Rk, 161, 0)]
+    worst = 0.0
+    for label, X, k, axis in cases:
+        n0 = kernels.LAUNCHES["ozaki_split"]
+        got = dd.ozaki_split(X, k, axis)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["ozaki_split"] != n0 + 1:
+            fail("ozaki_split did not launch its kernel")
+        want = dd.ozaki_split_plain(X, k, axis)
+        for g, w in zip(got, want):
+            same, err = bit_diff(g, w)
+            worst = max(worst, err)
+            if not same:
+                fail(f"ozaki_split kernel differs from its plain version "
+                     f"on {label} (max err {err:.3e})")
+    print(f"K4 ozaki_split: B 667x16384 (both axes), A_k 28175x161, "
+          f"R_k 161x161: bit for bit", flush=True)
+    ms = cuda_ms(lambda: dd.ozaki_split(B, 16384, -1), 50)
+    plain = cuda_ms(lambda: dd.ozaki_split_plain(B, 16384, -1), 10)
+    n = B.numel()
+    # read A once, write three slices; |.|, max, 2 x (add, sub, sub) x 2
+    b_ms, b_by = bound_ms(32.0 * n, 10.0 * n)
+    return dict(name="ozaki_split", route="cuda",
+                source="sedumi_tpu_torch/csrc/dd_split.cu",
+                replaces="sedumi_tpu/ddlinalg.py:86",
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def check_dd_elem(dev, gen):
+    """K5's three entry points bit for bit against the plain versions:
+    the accumulation (with and without the normalise) on control07's B
+    shape and on arch0's congruence product (28175 x 161), dd_add and
+    dd_sub at control07's Schur order (667 x 667, with and without a low
+    part), two_prod by a broadcast row on B's shape."""
+    from sedumi_tpu_torch import ddlinalg as dd
+    from sedumi_tpu_torch import kernels
+
+    worst = 0.0
+
+    def same(label, got, want):
+        nonlocal worst
+        for g, w in zip(got, want):
+            ok, err = bit_diff(g, w)
+            worst = max(worst, err)
+            if not ok:
+                fail(f"dd_accumulate kernel differs from its plain version "
+                     f"({label}, max err {err:.3e})")
+
+    n0 = kernels.LAUNCHES["dd_accumulate"]
+    for shape in ((667, 16384), (175 * 161, 161)):
+        Sh, P = wide_matrix(shape, gen).to(dev), wide_matrix(shape, gen)
+        P = P.to(dev)
+        Sl = Sh * 2.0**-60
+        for normalize in (False, True):
+            kh, kl = dd.dd_accumulate(Sh.clone(), Sl.clone(), P, normalize)
+            ph, pl = dd.dd_accumulate_plain(Sh.clone(), Sl.clone(), P,
+                                            normalize)
+            same(f"accumulate {shape} normalize={normalize}", (kh, kl),
+                 (ph, pl))
+    ah, bh = (wide_matrix((667, 667), gen).to(dev) for _ in range(2))
+    al, bl = ah * 2.0**-58, bh * 2.0**-57
+    for lo in (bl, None):
+        same("dd_add", dd.dd_add(ah, al, bh, lo),
+             dd.dd_add_plain(ah, al, bh, lo))
+        same("dd_sub", dd.dd_sub(ah, al, bh, lo),
+             dd.dd_sub_plain(ah, al, bh, lo))
+    A = wide_matrix((667, 16384), gen).to(dev)
+    v = wide_matrix((16384,), gen).to(dev)
+    same("two_prod_cols", dd.two_prod_cols(A, v),
+         dd.two_prod_cols_plain(A, v))
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["dd_accumulate"] != n0 + 9:
+        fail("dd_accumulate's entry points did not launch their kernels")
+    print(f"K5 dd_accumulate: accumulate on 667x16384 and 28175x161, "
+          f"dd_add/dd_sub on 667x667, two_prod_cols on 667x16384: bit "
+          f"for bit", flush=True)
+    # timed at control07's congruence product, 85376 x 128
+    Sh = wide_matrix((667 * 128, 128), gen).to(dev)
+    Sl, P = Sh * 2.0**-60, wide_matrix((667 * 128, 128), gen).to(dev)
+    ms = cuda_ms(lambda: dd.dd_accumulate(Sh, Sl, P), 200)
+    plain = cuda_ms(lambda: dd.dd_accumulate_plain(Sh, Sl, P), 20)
+    n = Sh.numel()
+    # read Sh, Sl, P, write Sh, Sl; TwoSum (6) + 1 add
+    b_ms, b_by = bound_ms(40.0 * n, 7.0 * n)
+    return dict(name="dd_accumulate", route="cuda",
+                source="sedumi_tpu_torch/csrc/dd_elem.cu",
+                replaces="sedumi_tpu/ddlinalg.py:113",
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def check_dd_gemv(dev, gen):
+    """K6 at m = n = 666 (the refinement's M x) and on the dd_chol_solve
+    panel views (L[p0:p1, :p0] and L[p1:, p0:p1]'), against the plain
+    version (the reference's Ozaki route).  The two sum in different
+    orders; each is within (n + 4)^2 u^2 sum_j |A_ij| |x_j| of the exact
+    product on these Gaussian inputs (K6: the compensation sum of the
+    TwoSum chain is the n^2 term; the Ozaki route: its remainder slices lie
+    within 4 n u of the row scale), so the tolerance is
+    2 (n + 4)^2 u^2 sum_j |A_ij| |x_j|, u = 2^-53."""
+    from sedumi_tpu_torch import ddlinalg as dd
+    from sedumi_tpu_torch import kernels
+
+    m = 666
+    u = 2.0**-53
+    Ah = torch.randn(m, m, generator=gen, dtype=torch.float64).to(dev)
+    Al = Ah * 2.0**-54 * torch.rand(m, m, generator=gen,
+                                    dtype=torch.float64).to(dev)
+    xh = torch.randn(m, generator=gen, dtype=torch.float64).to(dev)
+    xl = xh * 2.0**-54 * torch.rand(m, generator=gen,
+                                    dtype=torch.float64).to(dev)
+    cases = [("M x", Ah, Al, xh, xl),
+             ("L[48:96, :48] x", Ah[48:96, :48], Al[48:96, :48], xh[:48],
+              xl[:48]),
+             ("L[96:, 48:96]' x", Ah[96:, 48:96].T, Al[96:, 48:96].T,
+              xh[96:], xl[96:])]
+    worst_err, worst_ratio = 0.0, 0.0
+    for label, A, Alo, x, xlo in cases:
+        n0 = kernels.LAUNCHES["dd_gemv"]
+        kh, kl = dd.dd_gemv(A, Alo, x, xlo)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["dd_gemv"] != n0 + 1:
+            fail("dd_gemv did not launch its kernel")
+        ph, pl = dd.dd_gemv_plain(A, Alo, x, xlo)
+        n = A.shape[1]
+        err = torch.abs((kh - ph) + (kl - pl))
+        tol = 2.0 * (n + 4) ** 2 * u * u * (torch.abs(A) @ torch.abs(x))
+        worst_err = max(worst_err, float(err.max()))
+        worst_ratio = max(worst_ratio, float((err / tol).max()))
+        if not bool(torch.all(err <= tol)):
+            fail(f"dd_gemv kernel outside its bound on {label}")
+    print(f"K6 dd_gemv m=666 and both panel orientations: max err="
+          f"{worst_err:.3e}, worst err/tol={worst_ratio:.3e}", flush=True)
+    ms = cuda_ms(lambda: dd.dd_gemv(Ah, Al, xh, xl), 200)
+    plain = cuda_ms(lambda: dd.dd_gemv_plain(Ah, Al, xh, xl), 20)
+    # read Ah, Al, xh, xl, write yh, yl; ~14 flops per element
+    b_ms, b_by = bound_ms(16.0 * m * m + 48.0 * m, 14.0 * m * m)
+    return dict(name="dd_gemv", route="cuda",
+                source="sedumi_tpu_torch/csrc/dd_gemv.cu",
+                replaces="sedumi_tpu/ddlinalg.py:130",
+                max_abs_err=worst_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def spd_with_cond(m: int, cond: float, gen) -> torch.Tensor:
+    q, _ = torch.linalg.qr(torch.randn(m, m, generator=gen,
+                                       dtype=torch.float64))
+    ev = torch.logspace(0, -float(np.log10(cond)), m, dtype=torch.float64)
+    M = (q * ev) @ q.T
+    return 0.5 * (M + M.T)
+
+
+def check_dd_panel_chol(dev, gen):
+    """K7 inside dd_chol on a 666 x 666 matrix of cond 1e14 (14 panels)
+    and on one with a forced non-positive pivot, against dd_chol with the
+    plain panel: L, the panel inverses and ok bit for bit."""
+    from sedumi_tpu_torch import ddlinalg as dd
+    from sedumi_tpu_torch import kernels
+
+    m = 666
+    A1 = spd_with_cond(m, 1e14, gen).to(dev)
+    B = torch.randn(m, m, generator=gen, dtype=torch.float64)
+    A2 = (B @ B.T / m + torch.eye(m, dtype=torch.float64)).to(dev)
+    A2[300, 300] = -5.0                    # pivot 300 goes negative
+    worst = 0.0
+    for label, A, want_ok in (("cond 1e14", A1, True),
+                              ("non-positive pivot", A2, False)):
+        n0 = kernels.LAUNCHES["dd_panel_chol"]
+        fk = dd.dd_chol(A)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["dd_panel_chol"] != n0 + 14:
+            fail("dd_chol did not launch the panel kernel per panel")
+        kernel_panel = dd.dd_panel_chol
+        dd.dd_panel_chol = dd.dd_panel_chol_plain
+        try:
+            fp_ = dd.dd_chol(A)
+        finally:
+            dd.dd_panel_chol = kernel_panel
+        pairs = [(fk.Lh, fp_.Lh), (fk.Ll, fp_.Ll)] + [
+            (a, b) for pk, pp in zip(fk.inv_diag, fp_.inv_diag)
+            for a, b in zip(pk, pp)]
+        for a, b in pairs:
+            same, err = bit_diff(a, b)
+            worst = max(worst, err)
+            if not same:
+                fail(f"dd_panel_chol kernel differs from its plain version "
+                     f"({label}, max err {err:.3e})")
+        if bool(fk.ok) != want_ok or bool(fp_.ok) != want_ok:
+            fail(f"dd_chol ok flag wrong on the {label} matrix")
+    print("K7 dd_panel_chol: dd_chol of 666x666 at cond 1e14 and with a "
+          "forced non-positive pivot: bit for bit, ok flags right",
+          flush=True)
+    Sh = A1[:, :48].contiguous()
+    Sl = torch.zeros_like(Sh)
+    ms = cuda_ms(lambda: dd.dd_panel_chol(Sh, Sl), 50)
+    plain = cuda_ms(lambda: dd.dd_panel_chol_plain(Sh, Sl), 3, warmup=1)
+    w = 48
+    # dd updates: rows r > j of column j, columns j < c < w; the inverse's
+    # (w - j - 1) w; ~25 flops each (TwoProd, 3 adds, dd_sub)
+    upd = sum((m - j - 1) * (w - j - 1) + (w - j - 1) * w for j in range(w))
+    b_ms, b_by = bound_ms(16.0 * (2 * m * w + w * w), 25.0 * upd)
+    return dict(name="dd_panel_chol", route="cuda",
+                source="sedumi_tpu_torch/csrc/dd_chol.cu",
+                replaces="sedumi_tpu/ddlinalg.py:166",
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 # --------------------------------------------------------------------------
 # path phase
 # --------------------------------------------------------------------------
@@ -251,7 +496,8 @@ def run_example(ex, gate: bool):
     counts = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
     print(f"{ex.name}: iter={info['iter']} cx={cx!r} by={by!r} "
           f"rel={rel:.3e} pinf={info['pinf']} dinf={info['dinf']} "
-          f"numerr={info['numerr']} wall={wall:.2f}s launches={counts}",
+          f"numerr={info['numerr']} wall={wall:.2f}s "
+          f"phases={json.dumps(info['phases'])} launches={counts}",
           flush=True)
     finite = bool(np.all(np.isfinite(x)) and np.all(np.isfinite(y)))
     if not finite:
@@ -259,7 +505,7 @@ def run_example(ex, gate: bool):
     if gate and not (rel <= 1e-6 and info["pinf"] == 0
                      and info["dinf"] == 0 and info["numerr"] < 2):
         fail(f"{ex.name}: reference gate not met")
-    return counts
+    return counts, info
 
 
 def main() -> None:
@@ -281,19 +527,28 @@ def main() -> None:
 
     gen = torch.Generator().manual_seed(20261016)
     rows = [check_dd_residual(dev, gen), check_psd_coo(dev, gen),
-            check_ldl_masked(dev, gen)]
+            check_ldl_masked(dev, gen), check_ozaki_split(dev, gen),
+            check_dd_elem(dev, gen), check_dd_gemv(dev, gen),
+            check_dd_panel_chol(dev, gen)]
+    torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()
-    plan = [("quantum", True), ("nb", True), ("arch0", False),
+    plan = [("quantum", True), ("nb", True), ("arch0", True),
             ("control07", False), ("trto3", False),
             ("OH_2Pi_STO-6GN9r12g1T2", False)]
+    dd_kernels = ("ozaki_split", "dd_accumulate", "dd_gemv", "dd_panel_chol")
     for name, gate in plan:
-        counts = run_example(load_example(name), gate)
+        counts, info = run_example(load_example(name), gate)
         if counts["dd_matvec_residual"] == 0:
             fail(f"{name}: the compensated-residual kernel never ran")
-        if name == "arch0" and counts["psd_contrib_coo"] == 0:
-            fail("arch0: the sparse PSD Schur kernel never ran")
-    counts = run_example(with_zero_row(load_example("nb")), True)
+        if name == "arch0":
+            if counts["psd_contrib_coo"] == 0:
+                fail("arch0: the sparse PSD Schur kernel never ran")
+            if "dd64" not in info["phases"]:
+                fail("arch0 never entered the dd64 phase")
+            if any(counts[k] == 0 for k in dd_kernels):
+                fail("arch0: a dd64 kernel never ran in its solve")
+    counts, _ = run_example(with_zero_row(load_example("nb")), True)
     if counts["ldl_masked"] == 0:
         fail("nb+zero-row: the masked-LDL' fallback never ran")
     total = dict(kernels.LAUNCHES)

@@ -3,10 +3,13 @@ in PyTorch, for one NVIDIA H100.
 
 `sedumi(A, b, c, K, pars, device="cuda")` keeps the reference package's
 calling convention, pars names/defaults and info fields.  It runs the f64
-precision mode with the dense Schur engine on the card; the compensated
-Schur-solve residual, the sparse PSD Schur formation and the masked LDL'
-fallback are hand-written CUDA kernels (csrc/, built at first use by
-kernels.build_all), everything else is PyTorch on library kernels.  The
+precision mode with the dense Schur engine on the card, and the
+double-double dd64 endgame phase where the reference admits it; the
+compensated Schur-solve residual, the sparse PSD Schur formation, the
+masked LDL' fallback and dd64's Ozaki split, dd accumulation, dd
+matrix-vector product and dd panel Cholesky are hand-written CUDA kernels
+(csrc/, built at first use by kernels.build_all), everything else is
+PyTorch on library kernels.  The
 CPU runs only when the caller passes device="cpu" (the tests do), with the
 kernels' plain-PyTorch twins.
 

@@ -1,8 +1,8 @@
 """Carry state across from the reference package's arrays (as numpy).
 
-The step-parity tests drive both packages from the same iterate: the
-reference's IPMState / CooAOp leaves, turned into numpy arrays by the
-caller, become the port's tensors here.  Nothing here imports the
+The parity tests drive both packages from the same inputs: the
+reference's IPMState / CooAOp / Scaling leaves, turned into numpy arrays
+by the caller, become the port's tensors here.  Nothing here imports the
 reference package.
 """
 
@@ -13,6 +13,7 @@ import torch
 
 from .cones import Layout
 from .ipm import IPMState
+from .nt import Scaling
 from .opA import CooAOp
 from .structs import F64, ConeVec
 
@@ -49,6 +50,18 @@ def state_to_numpy(state: IPMState):
 
     return (cv(state.x), state.y.cpu().numpy(), cv(state.z),
             float(state.tau), float(state.kappa))
+
+
+def scaling_from_numpy(S, device="cuda") -> Scaling:
+    """The port's nt.Scaling from the reference's: S has Scaling's fields,
+    d_l and lam_l as arrays and the others as sequences of per-bucket
+    arrays (the reference's Scaling with its leaves turned into numpy)."""
+    vals = {}
+    for name in Scaling._fields:
+        v = getattr(S, name)
+        vals[name] = _t(v, device) if name in ("d_l", "lam_l") \
+            else tuple(_t(a, device) for a in v)
+    return Scaling(**vals)
 
 
 def aop_from_numpy(Al, Aq, s_parts, q_shapes, s_meta,

@@ -1,12 +1,13 @@
 """Precision regime of the port: native f64 only.
 
-The H100 computes f64 natively, so the port runs the solver in the single
-f64 phase that the reference runs on a CPU.  The f32 -> hybrid -> host64
-ladder of the reference (its fp.precision_mode 'mixed'/'f32') exists for
-accelerators without f64 and is not ported yet: asking for it raises.
+The H100 computes f64 natively, so the port runs the solver in the f64
+mode that the reference runs on a CPU, with its dd64 endgame rung
+(solver.py).  The f32 -> hybrid -> host64 ladder of the reference (its
+fp.precision_mode 'mixed'/'f32') exists for accelerators without f64 and
+is not ported yet: asking for it raises.
 
-The Veltkamp splitting constant for the error-free TwoProd (pcg.two_prod)
-is 2^ceil(53/2)+1 for f64.
+The Veltkamp splitting constant for the error-free TwoProd (pcg.two_prod,
+which ddlinalg shares) is 2^ceil(53/2)+1 for f64.
 """
 
 from __future__ import annotations

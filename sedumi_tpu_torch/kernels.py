@@ -43,9 +43,21 @@ SOURCES = {
     "ldl_masked.cu": {
         "ldl_masked_launch": [_P, _P, _P, _P, _P, _P, _P, _I,
                               _D, _D, _D, _I, _P]},
+    "dd_split.cu": {
+        "ozaki_split_launch": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P]},
+    "dd_elem.cu": {
+        "dd_accumulate_launch": [_P, _P, _P, _LL, _I, _P],
+        "dd_add_launch": [_P, _P, _P, _P, _I, _P, _P, _LL, _P],
+        "two_prod_cols_launch": [_P, _P, _I, _P, _P, _LL, _P]},
+    "dd_gemv.cu": {
+        "dd_gemv_launch": [_P, _P, _LL, _LL, _P, _P, _I, _I, _P, _P, _P]},
+    "dd_chol.cu": {
+        "dd_panel_chol_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P]},
 }
 
-LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0}
+LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
+            "ozaki_split": 0, "dd_accumulate": 0, "dd_gemv": 0,
+            "dd_panel_chol": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -124,10 +136,11 @@ def launch(src: str, fn: str, *args) -> None:
         raise RuntimeError(f"CUDA launch {fn} failed with error {code}")
 
 
-def check_cuda(*tensors: torch.Tensor, dtype=None) -> None:
+def check_cuda(*tensors: torch.Tensor, dtype=None,
+               contiguous: bool = True) -> None:
     """Device/type/contiguity checks before pointers go to a kernel."""
     for t in tensors:
-        if not t.is_cuda or not t.is_contiguous():
+        if not t.is_cuda or (contiguous and not t.is_contiguous()):
             raise ValueError("kernel arguments must be contiguous CUDA "
                              "tensors")
         if dtype is not None and t.dtype != dtype:

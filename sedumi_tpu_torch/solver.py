@@ -2,13 +2,16 @@
 
 Counterpart of the reference's solver.py (reference analog: sedumi.m),
 cut to the path this card runs: the f64 precision mode with the dense
-Schur engine.  Control scalars live on the host; each iteration is one
-ipm.make_step call on the device.  Routes this port does not cover raise
-NotImplementedError naming the ROADMAP item instead of falling back:
-the sparse tile engine (pars.sparse=1, or the m >= 800 route choosing it),
-a device mesh (pars.mesh_shape), the mixed/f32 precision modes, and the
-profiling/debug options.  The dd64 endgame rung is not admitted
-(the reference's dd64_possible=False case), so the phase order is [f64].
+Schur engine, and the reference's phase ladder cut to [f64] or
+[f64, dd64].  dd64 (ddengine.DdSchurEngine, on the same device) is
+admitted by the reference's gate, m <= 1200 and a dd formation cost below
+2.5e11, and entered on a rejected direction, an endgame plateau or a
+stall of the f64 phase.  Control scalars live on the host; each iteration
+is one ipm.make_step call on the device.  Routes this port does not cover
+raise NotImplementedError naming the ROADMAP item instead of falling
+back: the sparse tile engine (pars.sparse=1, or the m >= 800 route
+choosing it), a device mesh (pars.mesh_shape), the mixed/f32 precision
+modes, and the profiling/debug options.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from . import fp, ipm
 from .cones import ConeSpec, Layout
+from .ddengine import DdSchurEngine
 from .opA import build_coo_aop
 from .params import Pars
 from .structs import cv_eye, cv_scale, from_flat, to_flat
@@ -167,6 +171,25 @@ def _check_routes(At, layout: Layout, pars: Pars) -> None:
                 "forces the dense engine.")
 
 
+def dd_form_cost(layout: Layout, m: int) -> float:
+    """The reference's cost model of the Ozaki dd Schur formation, ~11x
+    the f64 flops (reference solver.py:629-635)."""
+    mp1 = m + 1
+    cost = float(mp1 * mp1 * (layout.l + sum(layout.q)))
+    for bkt in layout.s_buckets:
+        cost += mp1 * 4.0 * bkt.count * bkt.dim**3
+        cost += float(mp1) * mp1 * bkt.count * bkt.dim * bkt.dim
+    return cost * 11.0
+
+
+def dd64_admitted(layout: Layout, m: int) -> bool:
+    """The reference's dd64 gate (solver.py:642-644): m <= 1200 and a
+    formation cost below 2.5e11.  It admits arch0 (~4e10) and control07
+    (~1.4e11) and excludes trto3 and OH.  (The reference's other terms,
+    a host f64 device and no mesh, hold on the port's path.)"""
+    return m <= 1200 and dd_form_cost(layout, m) < 2.5e11
+
+
 def solve_internal(At, b, c, layout: Layout, pars: Pars,
                    device="cuda") -> InternalResult:
     """Run the homogeneous self-dual IPM on a problem in internal form.
@@ -291,6 +314,7 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
             return np.inf
         return float(cand.r0) if cand is not None else np.inf
 
+    state0 = state          # for discard_progress phase restarts
     it0 = 0
     if pars.resume and pars.checkpoint_path:
         import os
@@ -301,6 +325,46 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
             _log(pars, f"resumed from {pars.checkpoint_path} at iter {it0}")
     # tracked stopping residuals (sedumi.m:545-566), seeded after resume
     rw_p, rw_d = _measure_resid_inf(state)
+
+    # --- the phase ladder; the dd64 step is built at the first
+    # escalation ---
+    phase_order = ["f64", "dd64"] if dd64_admitted(layout, m) else ["f64"]
+    steps = {"f64": step}
+    cur = "f64"
+    recenter = ipm.make_recenter(layout)
+
+    def _escalate(why: str, discard_progress: bool = False) -> bool:
+        """Move to the next phase; False at the ladder top (reference
+        solver.py:708-791, cut to [f64, dd64]).  The iterate is recentered
+        into the cone interior and the tracked residuals re-synced to
+        measured values.  discard_progress: the f64 phase failed before
+        any real progress, so its iterates are junk; restart from the
+        initial point and forget the best-iterate records.  (The
+        reference's phase_iters and since_best_phase drive only its f32
+        and hybrid rungs, which the port does not have.)"""
+        nonlocal cur, state, since_best, stall, best_worst, best_state, \
+            best_rec, best_tr_score, best_tr_state, best_tr_rec, rw_p, rw_d
+        if discard_progress:
+            state = state0
+            best_tr_score, best_tr_state, best_tr_rec = np.inf, None, None
+            best_worst, best_state, best_rec = np.inf, state, None
+            _log(pars, "  discarding the unusable phase's iterates; "
+                       "restarting from the initial point")
+        idx = phase_order.index(cur) + 1
+        if idx >= len(phase_order):
+            return False
+        nxt = phase_order[idx]
+        if nxt not in steps:
+            steps[nxt] = ipm.make_step(layout, pars, normb, normc, cscale,
+                                       engine=DdSchurEngine(),
+                                       err_dens=(den_p, den_d))
+        state = recenter(state)
+        _log(pars, f"  escalating {cur} -> {nxt} ({why})")
+        rw_p, rw_d = _measure_resid_inf(state)
+        cur = nxt
+        since_best = 0
+        stall = 0
+        return True
 
     reg = 0.0
     iterlog: list[dict] = []
@@ -327,19 +391,35 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
         t_it0 = time.time()
         tried = 0
         while True:
-            new_state, st = step(aop, b_t, rs_t, state, reg, sd_on=sd_on)
+            new_state, st = steps[cur](aop, b_t, rs_t, state, reg,
+                                       sd_on=sd_on)
             rec = st.to_host()
             finite = np.isfinite(rec["mu"]) and bool(rec["chol_ok"]) \
                 and np.isfinite(rec["alpha"])
             leaves_ok = bool(torch.isfinite(new_state.tau)
                              & torch.isfinite(new_state.kappa))
-            if finite and leaves_ok:
+            # reject steps whose direction the solves corrupted (exact
+            # Newton satisfies the primal row to roundoff); escalation
+            # re-runs the same state one phase up
+            last_phase = cur == phase_order[-1]
+            quality_ok = last_phase or rec["dir_defect"] < 0.1
+            if finite and leaves_ok and quality_ok:
                 break
+            why = "bad direction" if finite and leaves_ok \
+                else "non-finite step"
             _log(pars,
-                 f"  step rejected (non-finite step): mu={rec['mu']:.1e} "
+                 f"  step rejected ({why}): mu={rec['mu']:.1e} "
                  f"alpha={rec['alpha']:.1e} "
                  f"chol_ok={bool(rec['chol_ok'])} "
                  f"defect={rec['dir_defect']:.1e} reg={reg:.1e}")
+            # the first phase's iterate is junk only when it made no real
+            # progress before failing (reference solver.py:855-863)
+            mu0_run = iterlog[0]["mu"] if iterlog else float("inf")
+            discard = (cur == phase_order[0] and it <= 20
+                       and rec["mu"] > 1e-3 * mu0_run)
+            if not last_phase and _escalate(f"{why} in {cur}",
+                                            discard_progress=discard):
+                continue
             tried += 1
             reg = max(reg * 100.0, 1e-14)
             if tried > 6:
@@ -351,7 +431,7 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
         # bookkeeping
         prev_state = state
         state = new_state
-        rec["phase"] = "f64"
+        rec["phase"] = cur
         rec["wall_s"] = round(time.time() - t_it0, 4)
         iterlog.append(rec)
         it += 1
@@ -361,7 +441,7 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
             f"{rec['sigma']:6.4f} {rec['err_p']:9.2e} {rec['err_d']:9.2e} "
             f"{rec['gap_rel']:9.2e}  d{rec['wr_delta']:5.2f} "
             f"c{rec['centered']:.0f} t1={rec['maxt1']:5.3f}"
-            f"  {rec['wall_s']:7.3f}s f64",
+            f"  {rec['wall_s']:7.3f}s {cur}",
         )
         if pars.stopat == it:
             breakpoint()  # pars.stopat debug hook (sedumi.m:430-432)
@@ -428,8 +508,10 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
             stop = 1
             state = prev_state   # the state the converged record describes
             break
-        # -- state-representation mu floor (ipm.StepStats.mu_floor) --
-        if (it - it0 > 3 and best_worst < 1e-3 and since_best >= 6
+        # -- state-representation mu floor (ipm.StepStats.mu_floor), at
+        # the ladder top only --
+        if (cur == phase_order[-1] and it - it0 > 3 and best_worst < 1e-3
+                and since_best >= 6
                 and rec["mu"] < 30.0 * rec["mu_floor"]):
             _log(pars, f"  mu {rec['mu']:.1e} at the f64 state floor "
                        f"({rec['mu_floor']:.1e}): stopping honestly")
@@ -463,8 +545,12 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
             _log(pars, f"  tracked-residual stop: precision1={prec1:.1e} "
                        f"precision2={prec2:.1e} (sedumi.m:554-560)")
             break
-        # -- plateau: solves at their accuracy floor (patience 18) --
-        if since_best >= 18 and best_worst < 1e-5:
+        # -- plateau: solves at their accuracy floor.  Patience 18 in f64,
+        # 8 in dd64, whose non-improving tail is the wander region.  The
+        # terminal refinement is tried first (it may make dd64
+        # unnecessary), then the best iterate goes one rung up --
+        patience = 8 if cur == "dd64" else 18
+        if since_best >= patience and best_worst < 1e-5:
             if best_worst <= pars.eps:
                 stop = 1
                 break
@@ -473,11 +559,19 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
                 state = best_state
                 stop = 1
                 _log(pars, "  refine-early: terminal projection reaches "
-                           "eps from the plateau iterate")
+                           "eps from the plateau iterate; skipping dd64")
                 break
+            if cur != phase_order[-1]:
+                state = best_state
+                if _escalate(f"endgame plateau at {best_worst:.1e}"):
+                    continue
             stop = -1
             break
         if since_best >= 30:     # hard plateau
+            if cur != phase_order[-1]:
+                state = best_state
+                if _escalate("hard plateau"):
+                    continue
             stop = -1
             break
         # -- infeasibility: tau -> 0 while kappa stays --
@@ -486,9 +580,10 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
         ):
             stop = 2
             break
-        # -- stall: no step progress (sedumi.m:497-506) --
+        # -- stall: no step progress (sedumi.m:497-506); the f64 phase
+        # escalates instead of giving up --
         stall = stall + 1 if (rec["alpha"] < 1e-5 and it > 5) else 0
-        if stall >= 3:
+        if stall >= 3 and not _escalate(f"stalled (alpha<1e-5 x{stall})"):
             stop = -1
             break
         if pars.checkpoint_every and pars.checkpoint_path and \

@@ -22,7 +22,8 @@ import scipy.sparse as sp
 import torch
 
 import sedumi_tpu_torch as st
-from sedumi_tpu_torch import chol, ipm, kernels, opA, pcg, schur, transform
+from sedumi_tpu_torch import chol, ddlinalg, ipm, kernels, opA, pcg, schur, \
+    transform
 from sedumi_tpu_torch.examples import load_example
 from sedumi_tpu_torch.params import Pars
 
@@ -118,6 +119,107 @@ def test_ldl_masked_kernel(cuda, m):
         assert torch.equal(a, b)
 
 
+def bits_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int64), b.contiguous().view(torch.int64))
+
+
+def wide(shape, seed):
+    """Values over many binades, with exact powers of two and zeros."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(shape) * np.exp2(rng.integers(-20, 21, shape))
+    flat = a.reshape(-1)
+    flat[::7] = np.exp2(rng.integers(-20, 21, flat[::7].shape))
+    flat[::11] = 0.0
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,axis,transposed", [
+    ((667, 2048), 2048, -1, False), ((667, 2048), 2048, 0, True),
+    ((175 * 161, 161), 161, -1, False), ((161, 161), 161, 0, False),
+    ((7, 3), 7, 0, False)])
+def test_ozaki_split_kernel(cuda, shape, k, axis, transposed):
+    """K4 bit for bit; a transposed operand runs on the flipped layout."""
+    A = torch.as_tensor(wide(shape, sum(shape)), device=cuda)
+    if transposed:
+        A = A.T
+    n0 = kernels.LAUNCHES["ozaki_split"]
+    got = ddlinalg.ozaki_split(A, k, axis)
+    assert kernels.LAUNCHES["ozaki_split"] == n0 + 1
+    for g, w in zip(got, ddlinalg.ozaki_split_plain(A, k, axis)):
+        assert bits_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_dd_elem_kernel(cuda):
+    """K5's three entry points bit for bit."""
+    Sh, P = (torch.as_tensor(wide((300, 170), s), device=cuda)
+             for s in (1, 2))
+    Sl = Sh * 2.0**-60
+    for normalize in (False, True):
+        got = ddlinalg.dd_accumulate(Sh.clone(), Sl.clone(), P, normalize)
+        want = ddlinalg.dd_accumulate_plain(Sh.clone(), Sl.clone(), P,
+                                            normalize)
+        assert all(bits_equal(g, w) for g, w in zip(got, want))
+    bl = P * 2.0**-57
+    for lo in (bl, None):
+        for k_fn, p_fn in ((ddlinalg.dd_add, ddlinalg.dd_add_plain),
+                           (ddlinalg.dd_sub, ddlinalg.dd_sub_plain)):
+            assert all(bits_equal(g, w) for g, w in zip(
+                k_fn(Sh, Sl, P, lo), p_fn(Sh, Sl, P, lo)))
+    v = P[0].contiguous()
+    assert all(bits_equal(g, w) for g, w in zip(
+        ddlinalg.two_prod_cols(Sh, v), ddlinalg.two_prod_cols_plain(Sh, v)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [5, 48, 123, 666])
+def test_dd_gemv_kernel(cuda, m):
+    """K6 within 2 (n + 4)^2 u^2 sum_j |A_ij| |x_j| of the Ozaki route
+    (each route's error bound on Gaussian data; see chip_smoke.py
+    check_dd_gemv), on A, on a row panel and on a transposed panel."""
+    rng = np.random.default_rng(m)
+    Ah = torch.as_tensor(rng.standard_normal((m, m)), device=cuda)
+    Al = Ah * torch.as_tensor(2.0**-54 * rng.random((m, m)), device=cuda)
+    xh = torch.as_tensor(rng.standard_normal(m), device=cuda)
+    xl = xh * torch.as_tensor(2.0**-54 * rng.random(m), device=cuda)
+    h = m // 2
+    u = 2.0**-53
+    for A, Alo, x, xlo in [(Ah, Al, xh, xl),
+                           (Ah[h:, :h], Al[h:, :h], xh[:h], xl[:h]),
+                           (Ah[h:, :h].T, Al[h:, :h].T, xh[h:], xl[h:])]:
+        kh, kl = ddlinalg.dd_gemv(A, Alo, x, xlo)
+        ph, pl = ddlinalg.dd_gemv_plain(A, Alo, x, xlo)
+        n = A.shape[1]
+        tol = 2.0 * (n + 4) ** 2 * u * u * (A.abs() @ x.abs())
+        assert bool(torch.all(((kh - ph) + (kl - pl)).abs() <= tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,pivot", [(120, False), (200, True)])
+def test_dd_panel_chol_kernel(cuda, m, pivot, monkeypatch):
+    """K7 inside dd_chol bit for bit against the plain panel, at cond 1e14
+    or with a forced non-positive pivot (ok False)."""
+    if pivot:
+        B = np.random.default_rng(m).standard_normal((m, m))
+        M = B @ B.T / m + np.eye(m)
+        M[70, 70] = -5.0
+    else:
+        M, _, _ = residual_case(m, m)
+    A = torch.as_tensor(M, device=cuda)
+    n0 = kernels.LAUNCHES["dd_panel_chol"]
+    fk = ddlinalg.dd_chol(A)
+    assert kernels.LAUNCHES["dd_panel_chol"] == n0 + -(-m // 48)
+    monkeypatch.setattr(ddlinalg, "dd_panel_chol",
+                        ddlinalg.dd_panel_chol_plain)
+    fp = ddlinalg.dd_chol(A)
+    assert bool(fk.ok) == bool(fp.ok) == (not pivot)
+    assert bits_equal(fk.Lh, fp.Lh) and bits_equal(fk.Ll, fp.Ll)
+    for pk, pp in zip(fk.inv_diag, fp.inv_diag):
+        assert all(bits_equal(a, b) for a, b in zip(pk, pp))
+
+
 def solve_arch0(device):
     ex = load_example("arch0")
     before = dict(kernels.LAUNCHES)
@@ -129,17 +231,21 @@ def solve_arch0(device):
             / abs(ex.optval),
             "pinf": int(info["pinf"]), "dinf": int(info["dinf"]),
             "numerr": int(info["numerr"]), "r0": float(info["r0"]),
+            "phases": {k: v["iters"] for k, v in info["phases"].items()},
             "launches": {k: kernels.LAUNCHES[k] - before[k]
                          for k in kernels.LAUNCHES},
             "x": x, "y": y}
 
 
 def use_plain_twins(mp):
-    """Put the three kernels' plain twins where the path calls them."""
+    """Put the seven kernels' plain twins where the path calls them."""
     mp.setattr(pcg, "dd_matvec_residual", pcg.dd_matvec_residual_plain)
     mp.setattr(schur, "_psd_contrib_coo_kernel",
                schur._psd_contrib_coo_plain)
     mp.setattr(ipm, "ldl_masked", chol.ldl_masked_plain)
+    for name in ("ozaki_split", "dd_accumulate", "dd_add", "dd_sub",
+                 "two_prod_cols", "dd_gemv", "dd_panel_chol"):
+        mp.setattr(ddlinalg, name, getattr(ddlinalg, name + "_plain"))
 
 
 @pytest.mark.cuda
@@ -148,13 +254,14 @@ def test_arch0_witness(cuda, monkeypatch):
     the card's libraries, or the order of its sums).  Solves arch0 with
     the port on the CPU; on the card as the main path runs it, twice; with
     deterministic algorithms (ordered index_add_), twice; and with
-    deterministic algorithms and the plain twins in place of the three
+    deterministic algorithms and the plain twins in place of the seven
     kernels.  Prints one JSON line with the library versions, each run's
-    c'x, b'y, iterations, rel, pinf, dinf, numerr, r0 and kernel launches,
-    and which ops warned that they have no deterministic implementation.
-    Asserts that the deterministic runs repeat bit for bit, that the plain
-    twins land where the kernels land, and that the card lands where the
-    CPU of the same host lands."""
+    c'x, b'y, iterations, phases, rel, pinf, dinf, numerr, r0 and kernel
+    launches, and which ops warned that they have no deterministic
+    implementation.  Asserts that every run enters dd64 and passes the
+    reference gate, that the deterministic runs repeat bit for bit, that
+    the plain twins land where the kernels land, and that the card lands
+    where the CPU of the same host lands."""
     runs = {"cpu": solve_arch0("cpu")}
     runs["card_1"] = solve_arch0(cuda)
     runs["card_2"] = solve_arch0(cuda)
@@ -188,7 +295,11 @@ def test_arch0_witness(cuda, monkeypatch):
     for r in runs.values():
         assert np.all(np.isfinite(r["x"])) and np.all(np.isfinite(r["y"]))
         assert r["pinf"] == 0 and r["dinf"] == 0
+        assert "dd64" in r["phases"]
+        assert r["rel"] <= 1e-6 and r["numerr"] < 2
     assert runs["det_1"]["launches"]["psd_contrib_coo"] > 0
+    assert all(runs["det_1"]["launches"][k] > 0 for k in (
+        "ozaki_split", "dd_accumulate", "dd_gemv", "dd_panel_chol"))
     assert sum(runs["det_plain"]["launches"].values()) == 0
     assert same("det_1", "det_2") and not nondet
 

@@ -128,10 +128,27 @@ def test_unported_routes_raise(pars, item):
 @pytest.mark.parametrize("name,gate", [("arch0", True),
                                        ("control07", False)])
 def test_large_example_cpu(name, gate):
+    """arch0 and control07 take the reference's phases (f64, then dd64)
+    with its pinf, dinf and numerr.  arch0 lands within 1e-7 of the
+    reference's c'x and b'y and passes the published gate; control07's
+    dd64 tail wanders at the 1e-6 level (reference solver.py:1110-1117),
+    so its landing point is printed, not held."""
+    import sedumi_tpu
+
     ex = load_example(name)
+    xj, yj, ij = sedumi_tpu.sedumi(ex.At, ex.b, ex.c, ex.K, {"fid": 0})
     x, y, info = pt.sedumi(ex.At, ex.b, ex.c, ex.K, {"fid": 0},
                            device="cpu")
     assert np.all(np.isfinite(x)) and np.all(np.isfinite(y))
-    assert info["pinf"] == 0 and info["dinf"] == 0
+    assert set(info["phases"]) == set(ij["phases"]) == {"f64", "dd64"}
+    for key in ("pinf", "dinf", "numerr"):
+        assert info[key] == ij[key], key
+    cx, by = float(ex.c @ x), float(ex.b @ y)
+    print(f"{name}: port c'x={cx!r} b'y={by!r} iter={info['iter']} "
+          f"phases={info['phases']}; reference c'x={float(ex.c @ xj)!r} "
+          f"b'y={float(ex.b @ yj)!r} iter={ij['iter']} "
+          f"phases={ij['phases']}")
     if gate:
-        assert _rel(float(ex.c @ x), ex.optval) <= 1e-6
+        assert _rel(cx, float(ex.c @ xj)) <= 1e-7
+        assert _rel(by, float(ex.b @ yj)) <= 1e-7
+        assert _rel(cx, ex.optval) <= 1e-6 and _rel(by, ex.optval) <= 1e-6
