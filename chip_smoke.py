@@ -3,21 +3,31 @@
     python3 chip_smoke.py
 
 1. Kernel phase: builds every CUDA kernel of the port from csrc/ (one nvcc
-   per source, in parallel) and holds each against its plain-PyTorch twin
-   on the card at the shapes the solver gives it, with the tolerance
-   stated (K1, K2, K6 within error bounds; K3, K4, K5, K7 bit for bit);
-   times both, and the card's least time (bound) for the work.
-2. Path phase: sedumi_tpu_torch.sedumi() on all six bundled examples at
+   per source, in parallel) and holds K1-K7 against their plain-PyTorch
+   twins on the card at the shapes the solver gives them, with the
+   tolerance stated (K1, K2, K6 within error bounds; K3, K4, K5, K7 bit
+   for bit); times both, and the card's least time (bound) for the work.
+   K8-K10 follow the sparse path (3.), on its plans.
+2. Dense path: sedumi_tpu_torch.sedumi() on all six bundled examples at
    full size (quantum, nb, arch0, control07, trto3, OH), plus nb with one
    redundant all-zero constraint (its Schur complement is singular, so
-   every iteration takes the masked-LDL' fallback).  Launch counts are
-   zeroed just before and read just after; every kernel must have
-   launched.  arch0 must enter the dd64 phase and launch K4-K7 in its
-   solve.  quantum, nb, arch0 and the redundant-row nb must pass the
-   reference gate (rel <= 1e-6 vs the published optimum, pinf = dinf = 0,
-   numerr < 2); the others must finish with finite outputs, and each
-   prints its rel, pinf, dinf, numerr and phases.
-3. Prints {"kernels": [...]}, the card's name and power limit, and as the
+   every iteration takes the masked-LDL' fallback).  arch0 must enter the
+   dd64 phase and launch K4-K7 in its solve.  quantum, nb, arch0 and the
+   redundant-row nb must pass the reference gate (rel <= 1e-6 vs the
+   published optimum, pinf = dinf = 0, numerr < 2); the others must finish
+   with finite outputs, and each prints its rel, pinf, dinf, numerr and
+   phases.
+3. Sparse path: four problems through the sparse tile engine (SPARSE_SOLVES:
+   an LP with m = 20000, an SDP with m = 1200, an SOCP with m = 850, an LP
+   with three dense columns), each gated as the reference's tests gate it
+   (lin_engine 'sparse', pinf = dinf = 0, max(err) < 1e-7) and required to
+   launch K8-K10; the SDP must launch K2 and the dense-column LP K3.  Each
+   prints its host plan time, iterations, phases, wall time and launches.
+   Then K8-K10 and K2's group layout are held against their plain twins
+   on the plans these solves built.
+   Launch counts are zeroed just before each path and read just after;
+   every kernel must have launched on the paths.
+4. Prints {"kernels": [...]}, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.  Any failure exits non-zero
    before the last line.  Without a CUDA device it exits 1 at once.
 """
@@ -464,6 +474,265 @@ def check_dd_panel_chol(dev, gen):
 
 
 # --------------------------------------------------------------------------
+# sparse-engine kernels (K8-K10, and K2's group layout), on the plans the
+# sparse path built
+# --------------------------------------------------------------------------
+
+
+def interior_scaling(meta, dev, rng):
+    """NT scaling at a random interior point of a plan's cone layout."""
+    from sedumi_tpu_torch import nt
+    from sedumi_tpu_torch.structs import ConeVec
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    def point():
+        q = [np.concatenate([rng.random((c, 1)) + 2.0,
+                             0.3 * rng.standard_normal((c, d - 1))], axis=1)
+             for c, d in meta["q_shapes"]]
+        s = []
+        for k, d in meta["s_shapes"]:
+            a = rng.standard_normal((k, d, d))
+            s.append(a @ a.transpose(0, 2, 1) / d + 2.0 * np.eye(d))
+        return ConeVec(l=t(rng.random(meta["nl"]) + 0.5),
+                       q=tuple(map(t, q)), s=tuple(map(t, s)))
+
+    return nt.compute_scaling(point(), point())
+
+
+def tile_case(plan, dev, rng):
+    """(operator, tile storage of A H A') of a sparse plan at a random
+    interior point: the factor's input as TileSchurEngine.prepare
+    assembles it."""
+    from sedumi_tpu_torch import sparse_chol as sc
+    from sedumi_tpu_torch import sparse_engine as se
+
+    arrays, meta = plan
+    aop = se.make_sparse_lq_op(arrays, meta, device=dev)
+    S = interior_scaling(meta, dev, rng)
+    vals, _, _ = se.ada_values(aop, S)
+    st = sc.assemble_tiles(meta["nslot"], meta["B"], aop.arrays["asm"], vals,
+                           aop.arrays["pad_idx"])
+    return aop, st
+
+
+def escalation_tiles(B: int, gen) -> torch.Tensor:
+    """Three diagonal tiles (lower triangles): SPD; indefinite by less than
+    dmax + 1 (fails the lifted factor only); indefinite beyond it (fails
+    both rungs)."""
+    G = torch.randn(B, B, generator=gen, dtype=torch.float64)
+    D = G @ G.T / B + torch.eye(B, dtype=torch.float64)
+    first, both = D.clone(), D.clone()
+    first[3, 3] = -0.5
+    both[5, 4] = both[4, 5] = 50.0
+    return torch.stack([torch.tril(a) for a in (D, first, both)])
+
+
+def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12):
+    """K8 and K9 level by level on the LP 20k and SDP plans, at ADA = A H A'
+    of a random interior point: each level's K8 against the plain version
+    from the same storage (rungs equal, factor within 1e-9 of the level's
+    max|L|), then K9 from the same post-K8 storage (within
+    2 (B + P + 1) eps (|D| + sum_pairs |A| |B|'), P = the destination's
+    pair count); K10 on the kernels' factor against the plain solve
+    (within 1e-9 of max|x|).  K8 also on three 128 x 128 tiles built for
+    rungs 0, 1 and 2 (the rung-2 diagonal bit for bit).  Times K8 and K9 at
+    the LP's widest level and K10's whole solve there."""
+    from sedumi_tpu_torch import kernels
+    from sedumi_tpu_torch import sparse_chol as sc
+
+    B = 128
+    st = escalation_tiles(B, gen).to(dev)
+    ref = st.clone()
+    lv3 = {"dslot": torch.arange(3, device=dev),
+           "off_slot": torch.zeros(0, dtype=torch.int64, device=dev),
+           "off_dslot": torch.zeros(0, dtype=torch.int64, device=dev)}
+    rk = sc.tile_factor(st, lv3, reg, canceltol)
+    rp = sc.tile_factor_plain(ref, lv3, reg, canceltol)
+    err_esc = float(torch.abs(st[:2] - ref[:2]).max())
+    print(f"K8 escalation tiles: rungs kernel {rk.tolist()} plain "
+          f"{rp.tolist()}, max err rungs 0-1 {err_esc:.3e}, rung-2 tile "
+          f"bit for bit {bit_diff(st[2], ref[2])[0]}", flush=True)
+    if rk.tolist() != [0, 1, 2] or rp.tolist() != [0, 1, 2]:
+        fail("tile_factor: the escalation tiles took the wrong rungs")
+    if not (err_esc <= 1e-12 * float(torch.abs(ref[:2]).max())
+            and bit_diff(st[2], ref[2])[0]):
+        fail("tile_factor kernel disagrees with its plain version on the "
+             "escalation tiles")
+
+    eps = float(np.finfo(np.float64).eps)
+    worst = {"tile_factor": err_esc, "tile_update": 0.0, "tile_solve": 0.0}
+    timing = {}
+    for label, plan in plans.items():
+        aop, st = tile_case(plan, dev, rng)
+        levels = aop.levels
+        wide = max(range(len(levels)),
+                   key=lambda i: (levels[i]["cols"].numel(),
+                                  levels[i]["pair_a"].numel()))
+        n_rung = [0, 0, 0]
+        ratio9 = 0.0
+        for i, lv in enumerate(levels):
+            if label == "lp20k" and i == wide:
+                timing["before"] = st.clone()
+            ref = st.clone()
+            n0 = kernels.LAUNCHES["tile_factor"]
+            rk = sc.tile_factor(st, lv, reg, canceltol)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["tile_factor"] == n0:
+                fail("tile_factor did not launch its kernel")
+            rp = sc.tile_factor_plain(ref, lv, reg, canceltol)
+            if not torch.equal(rk, rp):
+                fail(f"tile_factor: rungs differ on {label} level {i}")
+            for r in rk.tolist():
+                n_rung[r] += 1
+            slots = torch.cat([lv["dslot"], lv["off_slot"]])
+            err = float(torch.abs(st[slots] - ref[slots]).max())
+            worst["tile_factor"] = max(worst["tile_factor"], err)
+            if not err <= 1e-9 * float(torch.abs(ref[slots]).max()):
+                fail(f"tile_factor kernel disagrees with its plain version "
+                     f"on {label} level {i} (max err {err:.3e})")
+            if not lv["pair_a"].numel():
+                continue
+            dst, ptr = lv["pair_dst"], lv["pair_ptr"]
+            didx = torch.repeat_interleave(
+                torch.arange(dst.numel(), device=dev), torch.diff(ptr))
+            bound = torch.abs(st[dst]).index_add_(
+                0, didx, torch.abs(st[lv["pair_a"]])
+                @ torch.abs(st[lv["pair_b"]]).mT)
+            c = 2.0 * (B + float(torch.diff(ptr).max()) + 1.0)
+            ref = st.clone()
+            n0 = kernels.LAUNCHES["tile_update"]
+            sc.tile_update(st, lv)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["tile_update"] != n0 + 1:
+                fail("tile_update did not launch its kernel")
+            sc.tile_update_plain(ref, lv)
+            diff = torch.abs(st[dst] - ref[dst])
+            worst["tile_update"] = max(worst["tile_update"],
+                                       float(diff.max()))
+            ratio9 = max(ratio9, float((diff / (c * eps * bound)).max()))
+            if not bool(torch.all(diff <= c * eps * bound)):
+                fail(f"tile_update kernel outside its bound on {label} "
+                     f"level {i}")
+        rhs = torch.randn(aop.meta["ntiles_n"], generator=gen,
+                          dtype=torch.float64).to(dev)
+        n0 = kernels.LAUNCHES["tile_solve"]
+        xk = sc.tile_solve(st, rhs, levels)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["tile_solve"] == n0:
+            fail("tile_solve did not launch its kernels")
+        xp = sc.tile_solve_plain(st, rhs, levels)
+        err = float(torch.abs(xk - xp).max())
+        worst["tile_solve"] = max(worst["tile_solve"], err)
+        print(f"K8-K10 {label}: ntc={aop.meta['ntc']} "
+              f"levels={len(levels)} widest={levels[wide]['cols'].numel()} "
+              f"cols, rungs {n_rung}, worst K9 err/bound={ratio9:.3e}, K10 "
+              f"max err {err:.3e} (max|x| {float(xp.abs().max()):.3e})",
+              flush=True)
+        if not err <= 1e-9 * float(torch.abs(xp).max()):
+            fail(f"tile_solve kernel disagrees with its plain version on "
+                 f"{label}")
+        if label == "lp20k":
+            timing.update(levels=levels, wide=wide, L=st, rhs=rhs)
+
+    # --- times at the LP 20k plan: K8 and K9 at its widest level, K10's
+    # whole solve
+    levels, lv, before = timing["levels"], timing["levels"][timing["wide"]], \
+        timing["before"]
+    L, rhs = timing["L"], timing["rhs"]
+    work = before.clone()
+
+    def restore():
+        work.copy_(before)
+
+    def k8():
+        restore()
+        sc.tile_factor(work, lv, reg, canceltol)
+
+    def p8():
+        restore()
+        sc.tile_factor_plain(work, lv, reg, canceltol)
+
+    t_copy = cuda_ms(restore, 20)
+    D = before[lv["dslot"]]
+    D = torch.tril(D) + torch.tril(D, -1).mT
+    dmax = torch.abs(torch.diagonal(D, dim1=-2, dim2=-1)).amax(-1)
+    Dl = D + (canceltol * dmax + 1e-300)[:, None, None] \
+        * torch.eye(B, dtype=D.dtype, device=dev)
+    nc, no = lv["dslot"].numel(), lv["off_slot"].numel()
+    b8 = bound_ms(16.0 * B * B * (nc + no), nc * B**3 / 3.0 + no * B**3)
+    row8 = dict(name="tile_factor", route="cuda",
+                source="sedumi_tpu_torch/csrc/tile_chol.cu",
+                replaces="sedumi_tpu/sparse_chol.py:469",
+                max_abs_err=worst["tile_factor"],
+                ms=cuda_ms(k8, 20) - t_copy, plain_ms=cuda_ms(p8, 5) - t_copy,
+                bound_ms=b8[0], bound_by=b8[1],
+                library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(Dl), 20))
+    np_ = lv["pair_a"].numel()
+    nsrc = torch.unique(torch.cat([lv["pair_a"], lv["pair_b"]])).numel()
+    b9 = bound_ms(8.0 * B * B * (nsrc + 2 * lv["pair_dst"].numel()),
+                  2.0 * B**3 * np_)
+    work9 = before.clone()
+    row9 = dict(name="tile_update", route="cuda",
+                source="sedumi_tpu_torch/csrc/tile_update.cu",
+                replaces="sedumi_tpu/sparse_chol.py:514",
+                max_abs_err=worst["tile_update"],
+                ms=cuda_ms(lambda: sc.tile_update(work9, lv), 20),
+                plain_ms=cuda_ms(lambda: sc.tile_update_plain(work9, lv), 5),
+                bound_ms=b9[0], bound_by=b9[1], library_ms=None)
+    ntiles = sum(v["dslot"].numel() + v["off_slot"].numel() for v in levels)
+    noff = sum(v["off_slot"].numel() for v in levels)
+    b10 = bound_ms(8.0 * B * B * ntiles + 16.0 * rhs.numel(),
+                   2.0 * B * B * (ntiles - noff) + 4.0 * B * B * noff)
+    dsl = torch.cat([v["dslot"] for v in levels])
+    Ld, yd = L[dsl], rhs.reshape(-1, B, 1)[:dsl.numel()].clone()
+    row10 = dict(name="tile_solve", route="cuda",
+                 source="sedumi_tpu_torch/csrc/tile_solve.cu",
+                 replaces="sedumi_tpu/sparse_chol.py:525",
+                 max_abs_err=worst["tile_solve"],
+                 ms=cuda_ms(lambda: sc.tile_solve(L, rhs, levels), 20),
+                 plain_ms=cuda_ms(lambda: sc.tile_solve_plain(L, rhs, levels),
+                                  5),
+                 bound_ms=b10[0], bound_by=b10[1],
+                 library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+                     Ld, yd, upper=False), 20))
+    print(f"K8/K9 timed at the LP 20k widest level: {nc} columns, {no} off "
+          f"tiles, {np_} pairs; K10 over {len(levels)} levels, {ntiles} "
+          f"tiles", flush=True)
+    return [row8, row9, row10]
+
+
+def check_psd_outer_groups(plan, dev, rng):
+    """K2's group build with the sparse engine's output slots (0..G-1) on
+    the SDP plan's largest bucket, against the plain version (within
+    1e-12 of max|B~|)."""
+    from sedumi_tpu_torch import schur
+    from sedumi_tpu_torch import sparse_engine as se
+
+    arrays, meta = plan
+    aop = se.make_sparse_lq_op(arrays, meta, device=dev)
+    S = interior_scaling(meta, dev, rng)
+    bi = max(range(len(meta["s_G"])), key=lambda i: meta["s_G"][i])
+    G = meta["s_G"][bi]
+    a = aop.arrays
+    W = schur.psd_gram(S.s_r[bi])
+    args = (W, a["sg_blk"][bi], a["sg_p"][bi], a["sg_q"][bi], a["sg_v"][bi],
+            torch.arange(G, device=dev), G)
+    got = schur._psd_outer_kernel(*args)
+    want = schur.psd_outer_plain(*args)
+    err = float(torch.abs(got - want).max())
+    scale = float(torch.abs(want).max())
+    print(f"K2 group layout, SDP bucket {bi} (G={G}, d={W.shape[-1]}): "
+          f"max|B~|={scale:.3e} max err={err:.3e} (tol 1e-12*max|B~|)",
+          flush=True)
+    if not err <= 1e-12 * scale:
+        fail("psd_outer kernel disagrees with its plain version on the "
+             "sparse engine's group layout")
+    return err
+
+
+# --------------------------------------------------------------------------
 # path phase
 # --------------------------------------------------------------------------
 
@@ -506,6 +775,178 @@ def run_example(ex, gate: bool):
                      and info["dinf"] == 0 and info["numerr"] < 2):
         fail(f"{ex.name}: reference gate not met")
     return counts, info
+
+
+# The sparse problems: copies of the generators of
+# tests/test_sparse_engine.py (which imports the reference package), each
+# drawn from a fresh numpy.random.default_rng(12345) as tests/conftest.py
+# seeds them.
+
+
+def random_sparse_lp(m, n_extra, rng, density=3, dense_cols=0):
+    """Feasible sparse LP: n = m + n_extra variables, ~density nonzeros per
+    column, dense_cols columns hitting half the constraints."""
+    import scipy.sparse as sp
+
+    n = m + n_extra
+    perm = rng.permutation(m)
+    rows, cols, vals = [perm], [np.arange(m)], [rng.random(m) + 0.5]
+    for j in range(m, n):
+        k = rng.integers(1, density + 1)
+        rows.append(rng.choice(m, size=k, replace=False))
+        cols.append(np.full(k, j))
+        vals.append(rng.standard_normal(k))
+    for j in range(dense_cols):
+        r = rng.choice(m, size=m // 2, replace=False)
+        rows.append(r)
+        cols.append(np.full(r.size, j + m))
+        vals.append(rng.standard_normal(r.size) * 0.3)
+    A = sp.csc_matrix((np.concatenate(vals),
+                       (np.concatenate(rows), np.concatenate(cols))),
+                      shape=(m, n))
+    x0 = rng.random(n) + 0.5
+    b = A @ x0
+    y0 = rng.standard_normal(m) * 0.1
+    c = A.T @ y0 + rng.random(n) + 0.5
+    return A, b, c, {"l": n}
+
+
+def random_sparse_sdp(m, nb, d, rng, touch=2):
+    """Feasible sparse SDP: nb PSD blocks of order d, each constraint
+    touching `touch` blocks with a few symmetric entries."""
+    import scipy.sparse as sp
+
+    rows, cols, vals = [], [], []
+    for i in range(m):
+        for bk in rng.choice(nb, size=touch, replace=False):
+            p = int(rng.integers(0, d))
+            q = int(rng.integers(0, d))
+            v = float(rng.standard_normal())
+            base = bk * d * d
+            ent = {(p, q): 0.5 * v, (q, p): 0.5 * v} if p != q \
+                else {(p, p): v}
+            dg = int(rng.integers(0, d))
+            ent[(dg, dg)] = ent.get((dg, dg), 0.0) + float(
+                rng.standard_normal())
+            for (a, bq), vv in ent.items():
+                rows.append(i)
+                cols.append(base + a * d + bq)
+                vals.append(vv)
+    A = sp.csc_matrix((vals, (rows, cols)), shape=(m, nb * d * d))
+    b = A @ np.tile(np.eye(d).ravel(), nb)
+    c = A.T @ (rng.standard_normal(m) * 0.1) \
+        + np.tile((np.eye(d) * 1.5).ravel(), nb)
+    return A, b, c, {"s": [d] * nb}
+
+
+def sparse_socp(rng, m=850, ncones=60):
+    """test_sparse_socp_with_cones's problem: a sparse LP plus `ncones`
+    Lorentz cones of dimension 3, each touching 3 random constraints."""
+    import scipy.sparse as sp
+
+    A, _, _, _ = random_sparse_lp(m, 100, rng)
+    n = A.shape[1]
+    qdims = [3] * ncones
+    rows, cols, vals = [], [], []
+    off = 0
+    for d in qdims:
+        r = rng.choice(m, size=3, replace=False)
+        for j in range(d):
+            rows.append(r)
+            cols.append(np.full(r.size, n + off + j))
+            vals.append(rng.standard_normal(r.size) * 0.2)
+        off += d
+    Aq = sp.lil_matrix(sp.csc_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(m, n + sum(qdims))))
+    Aq[:, :n] = A
+    Aq = sp.csc_matrix(Aq)
+    xq, zq = np.zeros(sum(qdims)), np.zeros(sum(qdims))
+    o = 0
+    for d in qdims:
+        xq[o] = 2.0
+        xq[o + 1:o + d] = rng.standard_normal(d - 1) * 0.3
+        o += d
+    bq = Aq @ np.concatenate([rng.random(n) + 0.5, xq])
+    o = 0
+    for d in qdims:
+        zq[o] = 1.5
+        zq[o + 1:o + d] = rng.standard_normal(d - 1) * 0.2
+        o += d
+    cq = Aq.T @ (rng.standard_normal(m) * 0.1) + np.concatenate(
+        [rng.random(n) + 0.5, zq])
+    return Aq, bq, cq, {"l": n, "q": qdims}
+
+
+# (name, generator, pars): the reference's gates for the sparse path
+# (tests/test_sparse_engine.py), the first three on the automatic route.
+# The terminal conic refinement (refine.py) is host numpy with dense m x m
+# face Grams.  lp20k runs without it: at m = 20000 it would outlast this
+# script, and the LP's IPM endgame meets the gate alone.  The SDP is the
+# reference's non-slow one (m = 1200, test_sparse_sdp_routes_and_solves):
+# at m = 5000 the refinement took 660 s of a 764 s solve on the card's
+# host, and without it the SDP's endgame sits within 3x of the gate
+# (max(err) 3.2e-8 on the card).
+SPARSE_SOLVES = [
+    ("lp20k", lambda rng: random_sparse_lp(20000, 4000, rng),
+     {"fid": 0, "optstep": 0, "refine": 0}),
+    ("sdp1200", lambda rng: random_sparse_sdp(1200, 600, 4, rng),
+     {"fid": 0, "optstep": 0}),
+    ("socp850", sparse_socp, {"fid": 0, "optstep": 0}),
+    ("lp900+3dense", lambda rng: random_sparse_lp(900, 200, rng,
+                                                  dense_cols=3),
+     {"fid": 0, "sparse": 1, "optstep": 0}),
+]
+
+
+def run_sparse(name, make, pars, plans):
+    """One sparse solve on the card.  The solver's route_engine is wrapped
+    to time the host plan and keep it (for the kernel checks)."""
+    import sedumi_tpu_torch as st
+    from sedumi_tpu_torch import kernels, solver
+
+    A, b, c, K = make(np.random.default_rng(12345))
+    route = solver.route_engine
+    planned = {}
+
+    def timed_route(*args):
+        t = time.time()
+        kind, plan = route(*args)
+        planned.update(sec=time.time() - t, plan=plan)
+        return kind, plan
+
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    solver.route_engine = timed_route
+    try:
+        x, y, info = st.sedumi(A, b, c, K, pars, device="cuda")
+    finally:
+        solver.route_engine = route
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+    meta = planned["plan"][1] if planned.get("plan") else {}
+    res = float(np.linalg.norm(A @ x - b) / (1.0 + np.abs(b).max()))
+    print(f"{name}: m={A.shape[0]} n={A.shape[1]} "
+          f"engine={info['lin_engine']} plan={planned.get('sec', 0.0):.2f}s "
+          f"(ntc={meta.get('ntc')} levels={meta.get('nlev')} "
+          f"Kd={meta.get('Kd')} ADA density={meta.get('ada_density', 0):.4f}) "
+          f"iter={info['iter']} cx={float(c @ x)!r} "
+          f"max(err)={max(info['err']):.3e} |Ax-b|={res:.3e} "
+          f"pinf={info['pinf']} dinf={info['dinf']} numerr={info['numerr']} "
+          f"wall={wall:.2f}s phases={json.dumps(info['phases'])} "
+          f"launches={counts}", flush=True)
+    if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y))):
+        fail(f"{name}: non-finite solution")
+    if not (info["lin_engine"] == "sparse" and info["pinf"] == 0
+            and info["dinf"] == 0 and max(info["err"]) < 1e-7):
+        fail(f"{name}: the reference's sparse-path gate not met")
+    if any(counts[k] == 0 for k in ("tile_factor", "tile_update",
+                                    "tile_solve")):
+        fail(f"{name}: a tile-Cholesky kernel never ran in its solve")
+    plans[name] = planned["plan"]
+    return counts
 
 
 def main() -> None:
@@ -552,6 +993,28 @@ def main() -> None:
     if counts["ldl_masked"] == 0:
         fail("nb+zero-row: the masked-LDL' fallback never ran")
     total = dict(kernels.LAUNCHES)
+    torch.cuda.empty_cache()
+
+    # the sparse path, its counts zeroed just before and read just after
+    kernels.reset_launch_counts()
+    plans = {}
+    for name, make, pars in SPARSE_SOLVES:
+        counts = run_sparse(name, make, pars, plans)
+        if name == "sdp1200" and counts["psd_contrib_coo"] == 0:
+            fail("sdp1200: K2 never built the PSD groups in its solve")
+        if name == "lp900+3dense" and counts["ldl_masked"] == 0:
+            fail("lp900+3dense: K3 never factored the Woodbury capacitance")
+        torch.cuda.empty_cache()
+    for k, v in kernels.LAUNCHES.items():
+        total[k] += v
+
+    # the sparse engine's kernels at the plans' shapes
+    rng = np.random.default_rng(20261016)
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
+                                 check_psd_outer_groups(plans["sdp1200"], dev,
+                                                        rng))
+    rows += check_tile_kernels({k: plans[k] for k in ("lp20k", "sdp1200")},
+                               dev, gen, rng)
     for row in rows:
         row["launches"] = total[row["name"]]
         if row["launches"] == 0:

@@ -69,7 +69,7 @@ def aop_from_numpy(Al, Aq, s_parts, q_shapes, s_meta,
     """The port's CooAOp from the reference CooAOp's arrays: Al, Aq list,
     s_parts (list of dicts of arrays with the reference's keys), q_shapes
     and s_meta.  The CSR row pointer the port's Schur gather needs is
-    derived from the sorted b_row."""
+    derived from the sorted b_row, and the B~ slots from g_row and g_blk."""
     parts = []
     for part, meta in zip(s_parts, s_meta):
         out = {}
@@ -82,6 +82,7 @@ def aop_from_numpy(Al, Aq, s_parts, q_shapes, s_meta,
             out["b_rowptr"] = _t(np.searchsorted(np.asarray(part["b_row"]),
                                                  np.arange(mp1 + 1)),
                                  device, torch.int64)
+            out["g_slot"] = out["g_row"] * meta[1] + out["g_blk"]
         parts.append(out)
     return CooAOp(Al=_t(Al, device), Aq=[_t(a, device) for a in Aq],
                   s_parts=parts, q_shapes=q_shapes, s_meta=s_meta)

@@ -7,12 +7,15 @@
 // segment-sum.  With W = R R' symmetric:
 //
 //  (a) psd_coo_outer: grid (groups, output tiles).  A block computes one
-//      64 x 64 tile of B~[g_row*k + g_blk] = sum_t gv_t W[:, p_t] W[q_t, :]
-//      for one (row, block) group, streaming t through shared memory in
+//      64 x 64 tile of B~[g_slot] = sum_t gv_t W[:, p_t] W[q_t, :] for one
+//      (row, block) group, streaming t through shared memory in
 //      chunks of 16 (2 x 16 x 64 doubles = 16 KB), so pad2 is unbounded
 //      (OH: pad2 = 128).  Each of the 256 threads keeps a 4 x 4 register
-//      tile.  (row, block) keys are unique, so tiles are written, not
-//      added: no atomics.  Padded slots have gv = 0 and p = q = 0.
+//      tile.  The caller's output slots are unique (the dense-engine path
+//      passes g_row*k + g_blk, the sparse engine's B~ build, the
+//      reference's sparse_engine.py:209-228, passes 0..G-1), so tiles are
+//      written, not added: no atomics.  Padded slots have gv = 0 and
+//      p = q = 0.
 //      W[a, p] is read as W[p, a] (W symmetric) so loads coalesce.
 //  (b) psd_coo_gather: grid (rows i, column blocks).  Thread j sums
 //      b_val_t * B~[j, b_loc_t] over the CSR range of row i in t order.
@@ -30,10 +33,10 @@ constexpr int TC = 16;
 constexpr int THREADS = 256;
 
 __global__ void psd_coo_outer_kernel(
-    const double *__restrict__ W, const long long *__restrict__ g_row,
+    const double *__restrict__ W, const long long *__restrict__ g_slot,
     const long long *__restrict__ g_blk, const long long *__restrict__ gp,
     const long long *__restrict__ gq, const double *__restrict__ gv,
-    double *__restrict__ btf, int pad2, int k, int d, int tiles) {
+    double *__restrict__ btf, int pad2, int d, int tiles) {
   __shared__ double sp[TC][TILE];  // gv_t * W[p_t, a0 + c]
   __shared__ double sq[TC][TILE];  // W[q_t, e0 + c]
   const int g = blockIdx.x;
@@ -42,7 +45,7 @@ __global__ void psd_coo_outer_kernel(
   const long long blk = g_blk[g];
   const long long dd = (long long)d * d;
   const double *Wb = W + blk * dd;
-  double *out = btf + (g_row[g] * k + blk) * dd;
+  double *out = btf + g_slot[g] * dd;
   const long long *gpg = gp + (long long)g * pad2;
   const long long *gqg = gq + (long long)g * pad2;
   const double *gvg = gv + (long long)g * pad2;
@@ -111,16 +114,16 @@ __global__ void psd_coo_gather_kernel(const double *__restrict__ btf,
 
 }  // namespace
 
-extern "C" int psd_coo_outer_launch(const double *W, const long long *g_row,
+extern "C" int psd_coo_outer_launch(const double *W, const long long *g_slot,
                                     const long long *g_blk,
                                     const long long *gp, const long long *gq,
                                     const double *gv, double *btf, int G,
-                                    int pad2, int k, int d, void *stream) {
+                                    int pad2, int d, void *stream) {
   const int tiles = (d + TILE - 1) / TILE;
   if (G > 0) {
     dim3 grid(G, tiles * tiles);
     psd_coo_outer_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        W, g_row, g_blk, gp, gq, gv, btf, pad2, k, d, tiles);
+        W, g_slot, g_blk, gp, gq, gv, btf, pad2, d, tiles);
   }
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,7 @@ SOURCES = {
         "dd_matvec_residual_launch": [_P, _P, _P, _P, _I, _I, _P]},
     "psd_coo.cu": {
         "psd_coo_outer_launch": [_P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _P],
+                                 _I, _I, _I, _P],
         "psd_coo_gather_launch": [_P, _P, _P, _P, _P, _I, _LL, _P]},
     "ldl_masked.cu": {
         "ldl_masked_launch": [_P, _P, _P, _P, _P, _P, _P, _I,
@@ -53,11 +53,21 @@ SOURCES = {
         "dd_gemv_launch": [_P, _P, _LL, _LL, _P, _P, _I, _I, _P, _P, _P]},
     "dd_chol.cu": {
         "dd_panel_chol_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P]},
+    "tile_chol.cu": {
+        "tile_diag_launch": [_P, _P, _P, _I, _I, _D, _D, _P],
+        "tile_off_launch": [_P, _P, _P, _I, _I, _P]},
+    "tile_update.cu": {
+        "tile_update_launch": [_P, _P, _P, _P, _P, _I, _I, _P]},
+    "tile_solve.cu": {
+        "tile_fwd_diag_launch": [_P, _P, _P, _P, _I, _I, _P],
+        "tile_fwd_scatter_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "tile_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
 }
 
 LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "ozaki_split": 0, "dd_accumulate": 0, "dd_gemv": 0,
-            "dd_panel_chol": 0}
+            "dd_panel_chol": 0, "tile_factor": 0, "tile_update": 0,
+            "tile_solve": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

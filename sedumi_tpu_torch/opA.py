@@ -8,7 +8,8 @@ and the adjoint of w = [y; t] is A'y + c t.
 [m+1, count*d]) and each PSD bucket either 'dense' (flat [m+1, k*d*d])
 or 'coo': sorted triplets b_row/b_loc/b_val for apply/adjoint and the
 Schur gather, plus per-(row, block) padded groups g_row/g_blk/gp/gq/gv
-for the scaled-operator build (schur._psd_contrib_coo).  build_coo_aop
+and their output slots g_slot = g_row*k + g_blk for the scaled-operator
+build (schur._psd_contrib_coo).  build_coo_aop
 picks the representation per bucket by the reference's flop model,
 gemm_discount=3.0 included, so the dense/coo choice is the reference's.
 (The reference's DenseAOp is the all-'dense' special case; the port's
@@ -172,6 +173,8 @@ def coo_arrays(At: sp.spmatrix, c: np.ndarray, layout: Layout,
             # CSR row pointers of the sorted b_row (the Schur gather kernel)
             "b_rowptr": np.searchsorted(b_row, np.arange(mp1 + 1)),
             "g_row": kr[start], "g_blk": kb[start],
+            # B~ output slot of each group (schur.psd_outer)
+            "g_slot": kr[start] * k + kb[start],
             "gp": gp, "gq": gq, "gv": gv,
         })
         s_meta.append(("coo", k, d, int(G), int(pad2), int(T)))

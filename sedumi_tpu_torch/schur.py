@@ -8,6 +8,9 @@ spscale.c).  Per cone family:
   PSD, 'dense' bucket:  B[m,k] = R_k' A[m,k] R_k;  M += B B' (library bmm)
   PSD, 'coo' bucket:    kernel K2, _psd_contrib_coo
 
+K2's first half, psd_outer, also builds the sparse engine's per-group
+B~ (sparse_engine.TileSchurEngine).
+
 The augmented row m carries c, so M holds ADA, A H c and c' H c.
 """
 
@@ -65,22 +68,59 @@ def psd_gram(r: torch.Tensor) -> torch.Tensor:
     return r @ r.transpose(-1, -2)
 
 
-def _psd_contrib_coo_plain(part: dict, k: int, d: int, G: int, pad2: int,
-                           mp1: int, W: torch.Tensor,
-                           chunk_elems: float = 6e7) -> torch.Tensor:
-    """Sparse PSD Schur contribution from W = R R' (plain PyTorch):
-      B~[row*k + blk] = sum_t gv_t W[:, p_t] W[q_t, :]   per group,
-      M[i, j] = sum_{t in row i} b_val_t B~[j][b_loc_t]."""
-    g_blk, gp, gq, gv = part["g_blk"], part["gp"], part["gq"], part["gv"]
-    btf = torch.zeros(mp1 * k, d, d, dtype=W.dtype, device=W.device)
+def psd_outer_plain(W: torch.Tensor, g_blk: torch.Tensor, gp: torch.Tensor,
+                    gq: torch.Tensor, gv: torch.Tensor, g_slot: torch.Tensor,
+                    nout: int, chunk_elems: float = 6e7) -> torch.Tensor:
+    """B~[g_slot[g]] = sum_t gv_t W[:, p_t] W[q_t, :] for every (row,
+    block) group g, into [nout, d, d] zeros (plain PyTorch, in group
+    chunks so the [g, pad2, d] temporaries stay bounded)."""
+    G, pad2 = gp.shape
+    d = W.shape[-1]
+    btf = torch.zeros(nout, d, d, dtype=W.dtype, device=W.device)
     gchunk = max(1, int(chunk_elems // max(pad2 * d, 1)))
     for st in range(0, G, gchunk):
         en = min(st + gchunk, G)
         blk = g_blk[st:en]
         wp = W[blk[:, None], :, gp[st:en]] * gv[st:en, :, None]
         wq = W[blk[:, None], gq[st:en], :]
-        idx = part["g_row"][st:en] * k + blk
-        btf[idx] = torch.einsum("gtd,gte->gde", wp, wq)
+        btf[g_slot[st:en]] = torch.einsum("gtd,gte->gde", wp, wq)
+    return btf
+
+
+def _psd_outer_kernel(W: torch.Tensor, g_blk: torch.Tensor, gp: torch.Tensor,
+                      gq: torch.Tensor, gv: torch.Tensor, g_slot: torch.Tensor,
+                      nout: int) -> torch.Tensor:
+    """The same function on the card: csrc/psd_coo.cu (a)."""
+    W = W.contiguous()
+    kernels.check_cuda(W, gv, dtype=torch.float64)
+    kernels.check_cuda(g_blk, gp, gq, g_slot, dtype=torch.int64)
+    G, pad2 = gp.shape
+    d = W.shape[-1]
+    btf = torch.zeros(nout, d, d, dtype=W.dtype, device=W.device)
+    kernels.launch("psd_coo.cu", "psd_coo_outer_launch", W.data_ptr(),
+                   g_slot.data_ptr(), g_blk.data_ptr(), gp.data_ptr(),
+                   gq.data_ptr(), gv.data_ptr(), btf.data_ptr(), G, pad2, d)
+    kernels.LAUNCHES["psd_contrib_coo"] += 1
+    return btf
+
+
+def psd_outer(W: torch.Tensor, g_blk: torch.Tensor, gp: torch.Tensor,
+              gq: torch.Tensor, gv: torch.Tensor, g_slot: torch.Tensor,
+              nout: int) -> torch.Tensor:
+    """Per-group scaled operators B~ (kernel K2 (a) on the card); see
+    psd_outer_plain."""
+    if W.is_cuda:
+        return _psd_outer_kernel(W, g_blk, gp, gq, gv, g_slot, nout)
+    return psd_outer_plain(W, g_blk, gp, gq, gv, g_slot, nout)
+
+
+def _psd_contrib_coo_plain(part: dict, k: int, d: int, G: int, pad2: int,
+                           mp1: int, W: torch.Tensor) -> torch.Tensor:
+    """Sparse PSD Schur contribution from W = R R' (plain PyTorch):
+      B~[row*k + blk] = sum_t gv_t W[:, p_t] W[q_t, :]   per group,
+      M[i, j] = sum_{t in row i} b_val_t B~[j][b_loc_t]."""
+    btf = psd_outer_plain(W, part["g_blk"], part["gp"], part["gq"],
+                          part["gv"], part["g_slot"], mp1 * k)
     tmp = btf.reshape(mp1, k * d * d)[:, part["b_loc"]] \
         * part["b_val"][None, :]                                # [mp1, T]
     return torch.zeros(mp1, mp1, dtype=W.dtype, device=W.device) \
@@ -91,20 +131,14 @@ def _psd_contrib_coo_kernel(part: dict, k: int, d: int, G: int, pad2: int,
                             mp1: int, W: torch.Tensor) -> torch.Tensor:
     """The same function on the card: csrc/psd_coo.cu (a) builds B~ group
     by group, (b) gathers M row by row."""
-    W = W.contiguous()
-    names = ("g_row", "g_blk", "gp", "gq", "b_rowptr", "b_loc")
-    kernels.check_cuda(W, part["gv"], part["b_val"], dtype=torch.float64)
-    kernels.check_cuda(*(part[n] for n in names), dtype=torch.int64)
-    btf = torch.zeros(mp1 * k, d, d, dtype=W.dtype, device=W.device)
-    kernels.launch("psd_coo.cu", "psd_coo_outer_launch", W.data_ptr(),
-                   part["g_row"].data_ptr(), part["g_blk"].data_ptr(),
-                   part["gp"].data_ptr(), part["gq"].data_ptr(),
-                   part["gv"].data_ptr(), btf.data_ptr(), G, pad2, k, d)
+    kernels.check_cuda(part["b_val"], dtype=torch.float64)
+    kernels.check_cuda(part["b_rowptr"], part["b_loc"], dtype=torch.int64)
+    btf = _psd_outer_kernel(W, part["g_blk"], part["gp"], part["gq"],
+                            part["gv"], part["g_slot"], mp1 * k)
     M = torch.empty(mp1, mp1, dtype=W.dtype, device=W.device)
     kernels.launch("psd_coo.cu", "psd_coo_gather_launch", btf.data_ptr(),
                    part["b_rowptr"].data_ptr(), part["b_loc"].data_ptr(),
                    part["b_val"].data_ptr(), M.data_ptr(), mp1, k * d * d)
-    kernels.LAUNCHES["psd_contrib_coo"] += 1
     return M
 
 

@@ -1,16 +1,18 @@
 """Host loop: transform -> IPM iterations -> grading -> info (f64).
 
 Counterpart of the reference's solver.py (reference analog: sedumi.m),
-cut to the path this card runs: the f64 precision mode with the dense
-Schur engine, and the reference's phase ladder cut to [f64] or
-[f64, dd64].  dd64 (ddengine.DdSchurEngine, on the same device) is
-admitted by the reference's gate, m <= 1200 and a dd formation cost below
-2.5e11, and entered on a rejected direction, an endgame plateau or a
-stall of the f64 phase.  Control scalars live on the host; each iteration
-is one ipm.make_step call on the device.  Routes this port does not cover
-raise NotImplementedError naming the ROADMAP item instead of falling
-back: the sparse tile engine (pars.sparse=1, or the m >= 800 route
-choosing it), a device mesh (pars.mesh_shape), the mixed/f32 precision
+cut to the path this card runs: the f64 precision mode, and the
+reference's phase ladder cut to [f64] or [f64, dd64].  route_engine picks
+the linear-system engine as the reference does: the sparse tile engine
+(sparse_engine.TileSchurEngine) for pars.sparse=1, or at m >= 800 when
+ADA is sparse; the dense Schur engine otherwise.  dd64
+(ddengine.DdSchurEngine, on the same device) is admitted with the dense
+engine only, by the reference's gate, m <= 1200 and a dd formation cost
+below 2.5e11, and entered on a rejected direction, an endgame plateau or
+a stall of the f64 phase.  Control scalars live on the host; each
+iteration is one ipm.make_step call on the device.  Routes this port does
+not cover raise NotImplementedError naming the ROADMAP item instead of
+falling back: a device mesh (pars.mesh_shape), the mixed/f32 precision
 modes, and the profiling/debug options.
 """
 
@@ -28,6 +30,8 @@ from .cones import ConeSpec, Layout
 from .ddengine import DdSchurEngine
 from .opA import build_coo_aop
 from .params import Pars
+from .sparse_engine import TileSchurEngine, make_sparse_lq_op, \
+    plan_sparse_lq
 from .structs import cv_eye, cv_scale, from_flat, to_flat
 from .userapi import eigK
 
@@ -124,7 +128,7 @@ def _projected_start(At, b, layout, state):
     return None
 
 
-def _check_routes(At, layout: Layout, pars: Pars) -> None:
+def _check_routes(pars: Pars) -> None:
     """Raise for the reference routes this port does not cover."""
     if pars.mesh_shape:
         raise NotImplementedError(
@@ -139,36 +143,42 @@ def _check_routes(At, layout: Layout, pars: Pars) -> None:
         raise NotImplementedError(
             f"pars.schur_dtype={pars.schur_dtype!r}: low-precision Schur "
             "factors belong to the precision ladder (ROADMAP queue A item 9)")
+
+
+def _clique_bound_dense(At, layout: Layout) -> bool:
+    """The reference's cheap clique bound (solver.py:274-295): every PSD
+    block's touching-constraint set is an ADA clique, so sum(nc_b^2)
+    lower-bounds the pattern nnz; True when it exceeds 0.35 m^2."""
     m = At.shape[1]
-    if pars.sparse == 1:
-        raise NotImplementedError(
-            "pars.sparse=1: the sparse tile engine is not ported yet "
-            "(ROADMAP queue A item 8)")
-    if pars.sparse == -1 and m >= 800:
-        # the reference's cheap clique bound (solver.py:274-295): PSD
-        # problems whose ADA is provably dense stay on the dense engine
-        dense = False
-        if layout.s:
-            s_offs = layout.s_offsets()
-            rows_all = At.indices
-            cols_all = np.repeat(np.arange(m), np.diff(At.indptr))
-            in_s = rows_all >= layout.s_start
-            if np.any(in_s):
-                blk = np.searchsorted(s_offs, rows_all[in_s],
-                                      side="right") - 1
-                nb = max(len(layout.s), 1)
-                pairs = np.unique(cols_all[in_s].astype(np.int64) * nb
-                                  + blk)
-                nc = np.bincount((pairs % nb).astype(int),
-                                 minlength=len(layout.s))
-                dense = float(np.sum(nc.astype(np.float64) ** 2)) \
-                    > 0.35 * m * m
-        if not dense:
-            raise NotImplementedError(
-                "m >= 800 with a possibly sparse ADA: the reference plans "
-                "the sparse tile engine here (solver.py:272); it is not "
-                "ported yet (ROADMAP queue A item 8).  pars.sparse=0 "
-                "forces the dense engine.")
+    s_offs = layout.s_offsets()
+    rows_all = At.indices
+    cols_all = np.repeat(np.arange(m), np.diff(At.indptr))
+    in_s = rows_all >= layout.s_start
+    if not np.any(in_s):
+        return False
+    blk = np.searchsorted(s_offs, rows_all[in_s], side="right") - 1
+    nb = max(len(layout.s), 1)
+    pairs = np.unique(cols_all[in_s].astype(np.int64) * nb + blk)
+    nc = np.bincount((pairs % nb).astype(int), minlength=len(layout.s))
+    return float(np.sum(nc.astype(np.float64) ** 2)) > 0.35 * m * m
+
+
+def route_engine(At, c_s, layout: Layout, pars: Pars):
+    """The reference's linear-system routing (solver.py:266-305):
+    (engine kind, sparse plan or None).  pars.sparse=1, or the automatic
+    route (-1) at m >= 800, plans the sparse tile engine unless the clique
+    bound proves ADA dense; the plan is kept when forced or when ADA's
+    density is at most 0.35.  At, c_s: the row-equilibrated internal
+    data."""
+    m = At.shape[1]
+    if not (pars.sparse == 1 or (pars.sparse == -1 and m >= 800)):
+        return "dense", None
+    if layout.s and pars.sparse != 1 and _clique_bound_dense(At, layout):
+        return "dense", None
+    arrays, meta = plan_sparse_lq(At, c_s, layout, pars)
+    if pars.sparse == 1 or meta["ada_density"] <= 0.35:
+        return "sparse", (arrays, meta)
+    return "dense", None
 
 
 def dd_form_cost(layout: Layout, m: int) -> float:
@@ -190,6 +200,14 @@ def dd64_admitted(layout: Layout, m: int) -> bool:
     return m <= 1200 and dd_form_cost(layout, m) < 2.5e11
 
 
+def phase_ladder(engine_kind: str, layout: Layout, m: int) -> list[str]:
+    """The phases a solve may take: dd64 follows f64 with the dense engine
+    only (reference solver.py:642) and when dd64_admitted."""
+    if engine_kind == "dense" and dd64_admitted(layout, m):
+        return ["f64", "dd64"]
+    return ["f64"]
+
+
 def solve_internal(At, b, c, layout: Layout, pars: Pars,
                    device="cuda") -> InternalResult:
     """Run the homogeneous self-dual IPM on a problem in internal form.
@@ -201,7 +219,7 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
     b = np.asarray(b, np.float64).ravel()
     c = np.asarray(c, np.float64).ravel()
     At = sp.csc_matrix(At)
-    _check_routes(At, layout, pars)
+    _check_routes(pars)
     # initial-residual magnitudes for the grading denominators
     # (sdinit.m:96-105, sedumi.m:678-681)
     maxRb, maxRc = _residual_scales(At, b, c, layout)
@@ -220,10 +238,18 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
     normc = float(np.max(np.abs(c))) if c.size else 0.0
     cscale = 1.0 + normc
     c_s = c / cscale
-    engine_kind = "dense"
-
-    aop = build_coo_aop(At, c_s, layout, device=device)
-    step = ipm.make_step(layout, pars, normb, normc, cscale,
+    engine_kind, sp_plan = route_engine(At, c_s, layout, pars)
+    if engine_kind == "sparse":
+        sp_meta = sp_plan[1]
+        _log(pars, f"sparse Schur path: ADA nnz {sp_meta['ada_nnz']} "
+                   f"(density {sp_meta['ada_density']:.3f}), "
+                   f"{sp_meta['Kd']} dense column(s)")
+        aop = make_sparse_lq_op(*sp_plan, device=device)
+        engine = TileSchurEngine(pars)
+    else:
+        aop = build_coo_aop(At, c_s, layout, device=device)
+        engine = None
+    step = ipm.make_step(layout, pars, normb, normc, cscale, engine=engine,
                          err_dens=(den_p, den_d))
     b_t = torch.as_tensor(b, dtype=torch.float64, device=device)
     rs_t = torch.as_tensor(rowscale, dtype=torch.float64, device=device)
@@ -255,8 +281,8 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
                        f"(err_p0 {_ep[60]:.2e} -> "
                        f"{float(np.interp(_d0, _grid, _ep)):.2e})")
     # --- projected near-feasible primal start (reference solver.py:
-    # 513-537) ---
-    if 0 < m <= 2000:
+    # 513-537), with the dense engine only ---
+    if engine_kind == "dense" and 0 < m <= 2000:
         try:   # optional start, as in the reference
             x0f = _projected_start(At, b, layout, state)
         except Exception:
@@ -328,7 +354,7 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
 
     # --- the phase ladder; the dd64 step is built at the first
     # escalation ---
-    phase_order = ["f64", "dd64"] if dd64_admitted(layout, m) else ["f64"]
+    phase_order = phase_ladder(engine_kind, layout, m)
     steps = {"f64": step}
     cur = "f64"
     recenter = ipm.make_recenter(layout)

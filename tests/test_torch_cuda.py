@@ -23,7 +23,7 @@ import torch
 
 import sedumi_tpu_torch as st
 from sedumi_tpu_torch import chol, ddlinalg, ipm, kernels, opA, pcg, schur, \
-    transform
+    sparse_chol, sparse_engine, transform
 from sedumi_tpu_torch.examples import load_example
 from sedumi_tpu_torch.params import Pars
 
@@ -105,6 +105,14 @@ def test_psd_contrib_coo_kernel(cuda, seed):
         Mp = schur._psd_contrib_coo_plain(part, k, d, G, pad2, aop.m + 1, W)
         assert float((Mk - Mp).abs().max()) <= 1e-12 * float(
             Mp.abs().max())
+        # the sparse engine's layout: one B~ per group, slots 0..G-1
+        args = (W, part["g_blk"], part["gp"], part["gq"], part["gv"],
+                torch.arange(G, device=cuda), G)
+        Bk = schur._psd_outer_kernel(*args)
+        Bp = schur.psd_outer_plain(*args)
+        assert Bk.shape == (G, d, d)
+        assert float((Bk - Bp).abs().max()) <= 1e-12 * float(
+            Bp.abs().max())
 
 
 @pytest.mark.cuda
@@ -220,6 +228,81 @@ def test_dd_panel_chol_kernel(cuda, m, pivot, monkeypatch):
         assert all(bits_equal(a, b) for a, b in zip(pk, pp))
 
 
+def ada_matrix(n, seed):
+    """A A' + (n/2) I for a random sparse A with 1.5 nonzeros per column:
+    an LP-like Schur pattern whose first level has several columns."""
+    rng = np.random.default_rng(seed)
+    A = sp.random(n, 2 * n, density=1.5 / n, random_state=rng, format="csc")
+    return sp.csc_matrix(A @ A.T + sp.identity(n) * n * 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(3000, 128), (600, 32)])
+def test_tile_kernels(cuda, n, B):
+    """K8 and K9 level by level against the plain versions from the same
+    storage (rungs equal; factor within 1e-10 of max|L|; update within
+    2 (B + P + 1) eps (|D| + sum |A| |B|'), P the destination's pair
+    count), then K10 on the kernels' factor (within 1e-10 of max|x|)."""
+    M = ada_matrix(n, n)
+    f = sparse_chol.SparseCholesky(M, B=B, device=cuda)
+    st = f.storage(M)
+    assert f.plan.nlev >= 3 and f.levels[0]["cols"].numel() >= 3
+    for lv in f.levels:
+        ref = st.clone()
+        n0 = kernels.LAUNCHES["tile_factor"]
+        rk = sparse_chol.tile_factor(st, lv, 0.0)
+        assert kernels.LAUNCHES["tile_factor"] > n0
+        assert torch.equal(rk, sparse_chol.tile_factor_plain(ref, lv, 0.0))
+        slots = torch.cat([lv["dslot"], lv["off_slot"]])
+        assert float((st[slots] - ref[slots]).abs().max()) <= 1e-10 * float(
+            ref[slots].abs().max())
+        if not lv["pair_a"].numel():
+            continue
+        dst, ptr = lv["pair_dst"], lv["pair_ptr"]
+        didx = torch.repeat_interleave(torch.arange(dst.numel(), device=cuda),
+                                       torch.diff(ptr))
+        bound = st[dst].abs().index_add_(
+            0, didx, st[lv["pair_a"]].abs() @ st[lv["pair_b"]].abs().mT)
+        c = 2.0 * (B + float(torch.diff(ptr).max()) + 1.0)
+        ref = st.clone()
+        sparse_chol.tile_update(st, lv)
+        sparse_chol.tile_update_plain(ref, lv)
+        assert bool(torch.all((st[dst] - ref[dst]).abs() <= c * EPS * bound))
+    rhs = torch.as_tensor(np.random.default_rng(n).standard_normal(f.plan.n),
+                          device=cuda)
+    n0 = kernels.LAUNCHES["tile_solve"]
+    xk = sparse_chol.tile_solve(st, rhs, f.levels)
+    assert kernels.LAUNCHES["tile_solve"] > n0
+    xp = sparse_chol.tile_solve_plain(st, rhs, f.levels)
+    assert float((xk - xp).abs().max()) <= 1e-10 * float(xp.abs().max())
+
+
+@pytest.mark.cuda
+def test_tile_factor_escalation_rungs(cuda):
+    """Three 128 x 128 diagonal tiles built for rungs 0 (SPD), 1 (fails
+    the lifted factor only) and 2 (fails both): the kernel takes the plain
+    version's rungs; rungs 0-1 agree to 1e-12 of max|L|, the rung-2
+    diagonal bit for bit."""
+    B = 128
+    rng = np.random.default_rng(0)
+    G = rng.standard_normal((B, B))
+    D = G @ G.T / B + np.eye(B)
+    first, both = D.copy(), D.copy()
+    first[3, 3] = -0.5
+    both[5, 4] = both[4, 5] = 50.0
+    st = torch.as_tensor(np.stack([np.tril(a) for a in (D, first, both)]),
+                         device=cuda)
+    ref = st.clone()
+    lv = {"dslot": torch.arange(3, device=cuda),
+          "off_slot": torch.zeros(0, dtype=torch.int64, device=cuda),
+          "off_dslot": torch.zeros(0, dtype=torch.int64, device=cuda)}
+    assert sparse_chol.tile_factor(st, lv, 0.0).tolist() == [0, 1, 2]
+    assert sparse_chol.tile_factor_plain(ref, lv, 0.0).tolist() == [0, 1, 2]
+    assert float((st[:2] - ref[:2]).abs().max()) <= 1e-12 * float(
+        ref[:2].abs().max())
+    assert bits_equal(st[2], ref[2])
+
+
 def solve_arch0(device):
     ex = load_example("arch0")
     before = dict(kernels.LAUNCHES)
@@ -309,3 +392,97 @@ def test_arch0_witness(cuda, monkeypatch):
 
     assert close("det_plain", "det_1", 1e-9)
     assert close("det_1", "cpu", 1e-8)
+
+
+def dense_column_lp():
+    """test_dense_columns_keep_pattern_sparse_and_match's LP (m = 900, three
+    dense columns), from numpy.random.default_rng(12345) as the suite's
+    conftest seeds it (the generator of tests/test_sparse_engine.py,
+    copied: that file imports the reference package)."""
+    rng = np.random.default_rng(12345)
+    m, n = 900, 1100
+    rows, cols, vals = [rng.permutation(m)], [np.arange(m)], \
+        [rng.random(m) + 0.5]
+    for j in range(m, n):
+        k = rng.integers(1, 4)
+        rows.append(rng.choice(m, size=k, replace=False))
+        cols.append(np.full(k, j))
+        vals.append(rng.standard_normal(k))
+    for j in range(3):
+        r = rng.choice(m, size=m // 2, replace=False)
+        rows.append(r)
+        cols.append(np.full(r.size, j + m))
+        vals.append(rng.standard_normal(r.size) * 0.3)
+    A = sp.csc_matrix((np.concatenate(vals),
+                       (np.concatenate(rows), np.concatenate(cols))),
+                      shape=(m, n))
+    b = A @ (rng.random(n) + 0.5)
+    y0 = rng.standard_normal(m) * 0.1
+    c = A.T @ y0 + rng.random(n) + 0.5
+    return A, b, c, {"l": n}
+
+
+def solve_lp(device, sparse=1):
+    A, b, c, K = dense_column_lp()
+    before = dict(kernels.LAUNCHES)
+    x, y, info = st.sedumi(A, b, c, K, {"fid": 0, "sparse": sparse,
+                                        "optstep": 0}, device=device)
+    return {"cx": float(c @ x), "by": float(b @ y), "iter": int(info["iter"]),
+            "engine": info["lin_engine"], "err": max(info["err"]),
+            "pinf": int(info["pinf"]), "dinf": int(info["dinf"]),
+            "numerr": int(info["numerr"]),
+            "launches": {k: kernels.LAUNCHES[k] - before[k]
+                         for k in kernels.LAUNCHES},
+            "x": x, "y": y}
+
+
+@pytest.mark.cuda
+def test_sparse_witness(cuda, monkeypatch):
+    """The dense-column LP (m = 900, Kd = 3) through the sparse engine: on
+    that machine's CPU; on the card; deterministically, twice; and
+    deterministically with the plain versions in place of every kernel;
+    and forced dense on the card.  Prints one JSON line.  Asserts
+    the reference's gate on every run (lin_engine 'sparse', pinf = dinf =
+    0, max(err) < 1e-7), that K3 and K8-K10 launched, that deterministic
+    runs repeat bit for bit, that the card lands within 1e-8 relative of
+    the CPU, and that the sparse c'x is within 1e-6 of the dense
+    one (test_sparse_matches_dense_answer's bound)."""
+    runs = {"cpu": solve_lp("cpu"), "card": solve_lp(cuda)}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs["det_1"] = solve_lp(cuda)
+            runs["det_2"] = solve_lp(cuda)
+            with monkeypatch.context() as mp:
+                use_plain_twins(mp)
+                mp.setattr(sparse_engine, "ldl_masked",
+                           chol.ldl_masked_plain)
+                for name in ("tile_factor", "tile_update", "tile_solve"):
+                    mp.setattr(sparse_chol, name,
+                               getattr(sparse_chol, name + "_plain"))
+                runs["det_plain"] = solve_lp(cuda)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    runs["dense"] = solve_lp(cuda, sparse=0)
+    nondet = sorted({str(w.message).split("\n")[0][:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    same = bool(np.array_equal(runs["det_1"]["x"], runs["det_2"]["x"])
+                and np.array_equal(runs["det_1"]["y"], runs["det_2"]["y"]))
+    print(json.dumps({
+        "sparse_witness": {k: {f: v for f, v in r.items()
+                               if f not in ("x", "y")}
+                           for k, r in runs.items()},
+        "det_runs_identical": same, "nondeterministic_ops": nondet}),
+        flush=True)
+    for name, r in runs.items():
+        assert r["engine"] == ("dense" if name == "dense" else "sparse")
+        assert r["pinf"] == 0 and r["dinf"] == 0 and r["err"] < 1e-7
+    for k in ("ldl_masked", "tile_factor", "tile_update", "tile_solve"):
+        assert runs["det_1"]["launches"][k] > 0, k
+    assert sum(runs["det_plain"]["launches"].values()) == 0
+    assert same and not nondet
+    assert abs(runs["card"]["cx"] - runs["cpu"]["cx"]) <= 1e-8 * abs(
+        runs["cpu"]["cx"])
+    cd = runs["dense"]["cx"]
+    assert abs(runs["card"]["cx"] - cd) <= 1e-6 * (1.0 + abs(cd))

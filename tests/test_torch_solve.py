@@ -115,7 +115,7 @@ def test_checkpoint_resume(tmp_path):
 
 
 @pytest.mark.parametrize("pars,item", [
-    ({"sparse": 1}, "item 8"), ({"mesh_shape": {"blocks": 2}}, "item 10"),
+    ({"debug": 1}, "item 11"), ({"mesh_shape": {"blocks": 2}}, "item 10"),
     ({"dtype": "mixed"}, "item 9"), ({"dtype": "float32"}, "item 9"),
     ({"profile": 1}, "item 11")])
 def test_unported_routes_raise(pars, item):
