@@ -17,14 +17,16 @@
    published optimum, pinf = dinf = 0, numerr < 2); the others must finish
    with finite outputs, and each prints its rel, pinf, dinf, numerr and
    phases.
-3. Sparse path: four problems through the sparse tile engine (SPARSE_SOLVES:
-   an LP with m = 20000, an SDP with m = 1200, an SOCP with m = 850, an LP
-   with three dense columns), each gated as the reference's tests gate it
-   (lin_engine 'sparse', pinf = dinf = 0, max(err) < 1e-7) and required to
-   launch K8-K10; the SDP must launch K2 and the dense-column LP K3.  Each
+3. Sparse path: five problems through the sparse tile engine
+   (SPARSE_SOLVES: an LP with m = 20000, SDPs with m = 5000 and m = 1200,
+   an SOCP with m = 850, an LP with three dense columns).  Each must take
+   the sparse engine, finish with finite outputs and launch K8-K10; the
+   SDPs must launch K2 and the dense-column LP K3.  All but the SDP with
+   m = 5000 are gated as the reference's tests gate them (pinf = dinf = 0,
+   max(err) < 1e-7).  Each
    prints its host plan time, iterations, phases, wall time and launches.
    Then K8-K10 and K2's group layout are held against their plain twins
-   on the plans these solves built.
+   on the plans these solves built (LP 20k and SDP 5k).
    Launch counts are zeroed just before each path and read just after;
    every kernel must have launched on the paths.
 4. Prints {"kernels": [...]}, the card's name and power limit, and as the
@@ -878,30 +880,35 @@ def sparse_socp(rng, m=850, ncones=60):
     return Aq, bq, cq, {"l": n, "q": qdims}
 
 
-# (name, generator, pars): the reference's gates for the sparse path
-# (tests/test_sparse_engine.py), the first three on the automatic route.
-# The terminal conic refinement (refine.py) is host numpy with dense m x m
-# face Grams.  lp20k runs without it: at m = 20000 it would outlast this
-# script, and the LP's IPM endgame meets the gate alone.  The SDP is the
-# reference's non-slow one (m = 1200, test_sparse_sdp_routes_and_solves):
-# at m = 5000 the refinement took 660 s of a 764 s solve on the card's
-# host, and without it the SDP's endgame sits within 3x of the gate
-# (max(err) 3.2e-8 on the card).
+# (name, generator, pars, gated): the problems of the reference's tests
+# for the sparse path (tests/test_sparse_engine.py), all but the last on
+# the automatic route.  The SDP runs at both of the reference's sizes.
+# lp20k and sdp5k run without the terminal conic refinement (refine.py,
+# host numpy with dense m x m face Grams), which would put this script
+# past its time limit: at m = 5000 it took 660 s of a 764 s solve on the
+# card's host, and with it lp20k had not returned after 1700 s there.
+# Without it sdp5k's endgame lands at the gate (max(err) 3.2e-8 and
+# 9.5e-8 in two card runs), so it runs ungated, as trto3 and OH do on the
+# dense path, and the reference's gate holds on sdp1200.
 SPARSE_SOLVES = [
     ("lp20k", lambda rng: random_sparse_lp(20000, 4000, rng),
-     {"fid": 0, "optstep": 0, "refine": 0}),
+     {"fid": 0, "optstep": 0, "refine": 0}, True),
+    ("sdp5k", lambda rng: random_sparse_sdp(5000, 2500, 4, rng),
+     {"fid": 0, "optstep": 0, "refine": 0}, False),
     ("sdp1200", lambda rng: random_sparse_sdp(1200, 600, 4, rng),
-     {"fid": 0, "optstep": 0}),
-    ("socp850", sparse_socp, {"fid": 0, "optstep": 0}),
+     {"fid": 0, "optstep": 0}, True),
+    ("socp850", sparse_socp, {"fid": 0, "optstep": 0}, True),
     ("lp900+3dense", lambda rng: random_sparse_lp(900, 200, rng,
                                                   dense_cols=3),
-     {"fid": 0, "sparse": 1, "optstep": 0}),
+     {"fid": 0, "sparse": 1, "optstep": 0}, True),
 ]
 
 
-def run_sparse(name, make, pars, plans):
+def run_sparse(name, make, pars, gate, plans):
     """One sparse solve on the card.  The solver's route_engine is wrapped
-    to time the host plan and keep it (for the kernel checks)."""
+    to time the host plan and keep it (for the kernel checks).  Every solve
+    must take the sparse engine and finish with finite outputs; a gated one
+    must also meet the reference's gate."""
     import sedumi_tpu_torch as st
     from sedumi_tpu_torch import kernels, solver
 
@@ -939,8 +946,10 @@ def run_sparse(name, make, pars, plans):
           f"launches={counts}", flush=True)
     if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y))):
         fail(f"{name}: non-finite solution")
-    if not (info["lin_engine"] == "sparse" and info["pinf"] == 0
-            and info["dinf"] == 0 and max(info["err"]) < 1e-7):
+    if info["lin_engine"] != "sparse":
+        fail(f"{name}: the sparse engine was not taken")
+    if gate and not (info["pinf"] == 0 and info["dinf"] == 0
+                     and max(info["err"]) < 1e-7):
         fail(f"{name}: the reference's sparse-path gate not met")
     if any(counts[k] == 0 for k in ("tile_factor", "tile_update",
                                     "tile_solve")):
@@ -998,10 +1007,10 @@ def main() -> None:
     # the sparse path, its counts zeroed just before and read just after
     kernels.reset_launch_counts()
     plans = {}
-    for name, make, pars in SPARSE_SOLVES:
-        counts = run_sparse(name, make, pars, plans)
-        if name == "sdp1200" and counts["psd_contrib_coo"] == 0:
-            fail("sdp1200: K2 never built the PSD groups in its solve")
+    for name, make, pars, gate in SPARSE_SOLVES:
+        counts = run_sparse(name, make, pars, gate, plans)
+        if name.startswith("sdp") and counts["psd_contrib_coo"] == 0:
+            fail(f"{name}: K2 never built the PSD groups in its solve")
         if name == "lp900+3dense" and counts["ldl_masked"] == 0:
             fail("lp900+3dense: K3 never factored the Woodbury capacitance")
         torch.cuda.empty_cache()
@@ -1011,9 +1020,9 @@ def main() -> None:
     # the sparse engine's kernels at the plans' shapes
     rng = np.random.default_rng(20261016)
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
-                                 check_psd_outer_groups(plans["sdp1200"], dev,
+                                 check_psd_outer_groups(plans["sdp5k"], dev,
                                                         rng))
-    rows += check_tile_kernels({k: plans[k] for k in ("lp20k", "sdp1200")},
+    rows += check_tile_kernels({k: plans[k] for k in ("lp20k", "sdp5k")},
                                dev, gen, rng)
     for row in rows:
         row["launches"] = total[row["name"]]

@@ -60,6 +60,8 @@ class TilePlan(NamedTuple):
     pmask: np.ndarray      # [ntc + 1, maxp]
     orow: np.ndarray       # [ntc + 1, maxo] row-tile index of each off tile
     asm_dst: np.ndarray    # [nnz_lower] flat index into [nslot*B*B]
+    asm_key: np.ndarray    # [nnz_lower] row * n + col of each asm_dst entry
+    pad_idx: np.ndarray    # flat index of the padded tail's diagonal
     slot_of: dict          # (rowtile, coltile) -> slot
     nlev: int = 0
     lv_cols: np.ndarray | None = None   # [nlev, maxc] column ids (pad=ntc)
@@ -181,11 +183,16 @@ def plan_tiles(pattern: sp.spmatrix, B: int = 128,
     st = np.asarray([slot_of[(int(r) // B, int(c) // B)]
                      for r, c in zip(ri, ci)], np.int64)
     asm_dst = st * (B * B) + (ri % B).astype(np.int64) * B + (ci % B)
+    pad = np.arange(n0, n, dtype=np.int64)
+    pad_idx = (dslot[pad // B].astype(np.int64) * (B * B)
+               + (pad % B) * B + (pad % B))
 
     return TilePlan(
         n=n, B=B, perm=perm, ntc=ntc, nslot=nslot, dslot=dslot,
         oslot=oslot, omask=omask, pa=pa, pb=pb, pdst=pdst, pmask=pmask,
-        orow=orow, asm_dst=asm_dst, slot_of=slot_of, nlev=nlev,
+        orow=orow, asm_dst=asm_dst,
+        asm_key=ri.astype(np.int64) * n + ci, pad_idx=pad_idx,
+        slot_of=slot_of, nlev=nlev,
         lv_cols=lv_cols, lv_cmask=lv_cmask, lv_lists=lv_lists,
         levels=level_maps(dslot, oslot, omask, pa, pb, pdst, pmask, orow,
                           lv_lists))
@@ -406,9 +413,15 @@ def tile_solve_plain(L: torch.Tensor, rhs: torch.Tensor,
     return y.reshape(-1)
 
 
+_SOLVE_KEYS = ("cols", "dslot", "fs_row", "fs_ptr", "fs_slot", "fs_col",
+               "off_ptr", "off_slot", "off_row")
+
+
 def _tile_solve_kernel(L: torch.Tensor, rhs: torch.Tensor,
                        levels) -> torch.Tensor:
     kernels.check_cuda(L, rhs, dtype=torch.float64)
+    for lv in levels:
+        kernels.check_cuda(*(lv[k] for k in _SOLVE_KEYS), dtype=torch.int64)
     B = L.shape[-1]
     y = rhs.reshape(-1, B).clone()
     for lv in levels:
@@ -448,7 +461,7 @@ class SparseCholesky:
     `factor(M)` takes the sparse SPD matrix with the planned pattern;
     `solve(L, b)` returns M^{-1} b (approximately, when diag-adds fired)."""
 
-    def __init__(self, pattern: sp.spmatrix, B: int = 128, device="cpu"):
+    def __init__(self, pattern: sp.spmatrix, B: int = 128, device="cuda"):
         self.plan = plan_tiles(pattern, B=B)
         self.device = torch.device(device)
         self.levels = levels_to(self.plan.levels, self.device)
@@ -456,30 +469,27 @@ class SparseCholesky:
         self._n0 = pattern.shape[0]
         self._iperm = np.empty_like(p)
         self._iperm[p] = np.arange(p.size)
+        self._key_order = np.argsort(self.plan.asm_key)
 
     def storage(self, M: sp.spmatrix) -> torch.Tensor:
-        """Tile storage of M (same pattern as planned), identity on the
-        padded tail."""
+        """Tile storage of M, which has the planned pattern (its nonzeros
+        may come in another order), identity on the padded tail."""
         pl = self.plan
-        B = pl.B
         Mp = sp.csc_matrix(M)[pl.perm][:, pl.perm].tocoo()
         mask = Mp.row >= Mp.col
-        ri, ci = Mp.row[mask], Mp.col[mask]
-        st = np.asarray([pl.slot_of.get((int(r) // B, int(c) // B),
-                                        pl.nslot - 1)
-                         for r, c in zip(ri, ci)], np.int64)
-        dst = st * (B * B) + (ri % B).astype(np.int64) * B + (ci % B)
-        pad = np.arange(self._n0, pl.n)
-        pst = np.asarray([pl.slot_of[(int(i) // B, int(i) // B)]
-                          for i in pad], np.int64)
-        pad_idx = pst * (B * B) + (pad % B) * B + (pad % B)
+        key = Mp.row[mask].astype(np.int64) * pl.n + Mp.col[mask]
+        keys = pl.asm_key[self._key_order]
+        pos = np.minimum(np.searchsorted(keys, key), max(keys.size - 1, 0))
+        if not np.array_equal(keys[pos], key):
+            raise ValueError("M has nonzeros outside the planned pattern")
+        dst = pl.asm_dst[self._key_order[pos]]
 
         def put(a, dt=torch.int64):
             return torch.as_tensor(a, dtype=dt, device=self.device)
 
-        return assemble_tiles(pl.nslot, B, put(dst),
+        return assemble_tiles(pl.nslot, pl.B, put(dst),
                               put(Mp.data[mask], torch.float64),
-                              put(pad_idx))
+                              put(pl.pad_idx))
 
     def factor(self, M: sp.spmatrix, reg: float = 0.0) -> torch.Tensor:
         return factor_tiles(self.storage(M), self.levels, reg)

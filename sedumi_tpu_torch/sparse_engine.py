@@ -469,10 +469,7 @@ def plan_sparse_lq(At: sp.spmatrix, c: np.ndarray, layout: Layout,
     slot = np.asarray([plan.slot_of[(int(a) // B, int(b) // B)]
                        for a, b in zip(r, cc)], np.int64)
     asm = slot * (B * B) + (r % B) * B + (cc % B)
-    pad = np.arange(m, plan.n)
-    pad_slot = np.asarray([plan.slot_of[(int(i) // B, int(i) // B)]
-                           for i in pad], np.int64)
-    pad_idx = pad_slot * (B * B) + (pad % B) * B + (pad % B)
+    pad_idx = plan.pad_idx
 
     # --- pair triples --------------------------------------------------------
     pr_dst, pr_w, pr_prod = [], [], []

@@ -22,6 +22,7 @@ import scipy.sparse as sp
 import torch
 
 import sedumi_tpu_torch as st
+from chip_smoke import random_sparse_lp
 from sedumi_tpu_torch import chol, ddlinalg, ipm, kernels, opA, pcg, schur, \
     sparse_chol, sparse_engine, transform
 from sedumi_tpu_torch.examples import load_example
@@ -397,29 +398,9 @@ def test_arch0_witness(cuda, monkeypatch):
 def dense_column_lp():
     """test_dense_columns_keep_pattern_sparse_and_match's LP (m = 900, three
     dense columns), from numpy.random.default_rng(12345) as the suite's
-    conftest seeds it (the generator of tests/test_sparse_engine.py,
-    copied: that file imports the reference package)."""
-    rng = np.random.default_rng(12345)
-    m, n = 900, 1100
-    rows, cols, vals = [rng.permutation(m)], [np.arange(m)], \
-        [rng.random(m) + 0.5]
-    for j in range(m, n):
-        k = rng.integers(1, 4)
-        rows.append(rng.choice(m, size=k, replace=False))
-        cols.append(np.full(k, j))
-        vals.append(rng.standard_normal(k))
-    for j in range(3):
-        r = rng.choice(m, size=m // 2, replace=False)
-        rows.append(r)
-        cols.append(np.full(r.size, j + m))
-        vals.append(rng.standard_normal(r.size) * 0.3)
-    A = sp.csc_matrix((np.concatenate(vals),
-                       (np.concatenate(rows), np.concatenate(cols))),
-                      shape=(m, n))
-    b = A @ (rng.random(n) + 0.5)
-    y0 = rng.standard_normal(m) * 0.1
-    c = A.T @ y0 + rng.random(n) + 0.5
-    return A, b, c, {"l": n}
+    conftest seeds it, by chip_smoke.py's copy of the generator."""
+    return random_sparse_lp(900, 200, np.random.default_rng(12345),
+                            dense_cols=3)
 
 
 def solve_lp(device, sparse=1):

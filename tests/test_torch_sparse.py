@@ -210,7 +210,7 @@ def test_plan_sparse_lq_matches_reference(name):
 def test_sparse_cholesky_matches_scipy(n, density, B, seed):
     """test_sparse_chol.test_factor_solve_matches_scipy on the port."""
     M = _random_spd(n, density, seed)
-    f = tsc.SparseCholesky(M, B=B)
+    f = tsc.SparseCholesky(M, B=B, device="cpu")
     assert f.plan.nlev >= 3
     L = f.factor(M)
     b = np.random.default_rng(seed + 100).normal(size=n)
@@ -220,7 +220,7 @@ def test_sparse_cholesky_matches_scipy(n, density, B, seed):
 
 def test_refactor_same_plan_different_values():
     M1 = _random_spd(80, 0.06, 3)
-    f = tsc.SparseCholesky(M1, B=32)
+    f = tsc.SparseCholesky(M1, B=32, device="cpu")
     rng = np.random.default_rng(9)
     M2 = sp.csc_matrix(M1.multiply(1.0)) + sp.diags(
         np.abs(rng.normal(size=80)) + 0.5)
@@ -229,13 +229,32 @@ def test_refactor_same_plan_different_values():
                                rtol=1e-8, atol=1e-10)
 
 
+def test_storage_follows_the_planned_pattern():
+    """storage() places M's nonzeros by the plan's assembly map whatever
+    their order (a COO with shuffled entries assembles the same tiles,
+    bit for bit), and refuses a nonzero outside the planned pattern."""
+    M = _random_spd(70, 0.06, 7)
+    f = tsc.SparseCholesky(M, B=16, device="cpu")
+    coo = M.tocoo()
+    p = np.random.default_rng(7).permutation(coo.nnz)
+    shuffled = sp.coo_matrix((coo.data[p], (coo.row[p], coo.col[p])),
+                             shape=M.shape)
+    assert torch.equal(f.storage(shuffled), f.storage(M))
+    outside = np.argwhere(M.toarray() == 0)[0]
+    extra = M.tolil()
+    extra[outside[0], outside[1]] = extra[outside[1], outside[0]] = 1.0
+    with pytest.raises(ValueError, match="planned pattern"):
+        f.storage(extra.tocsc())
+
+
 def test_diag_add_never_fails():
     """test_sparse_chol.test_diag_add_never_fails on the port: a massively
     indefinite matrix factors to a finite L."""
     n = 40
     M = _random_spd(n, 0.1, 5)
     M = M - sp.diags(M.diagonal()) + sp.diags(np.ones(n) * 1e-18)
-    f = tsc.SparseCholesky(sp.csc_matrix(np.abs(M) + sp.identity(n)), B=16)
+    f = tsc.SparseCholesky(sp.csc_matrix(np.abs(M) + sp.identity(n)), B=16,
+                           device="cpu")
     L = f.factor(sp.csc_matrix(np.abs(M) + sp.identity(n) * 1e-18))
     assert bool(torch.isfinite(L).all())
 
@@ -264,7 +283,7 @@ def test_level_factor_matches_reference_ur(n, density, B, seed, reg):
     (cond < 1e3) the factors agree to 1e-12 of max|L| and the solves to
     1e-10 relative."""
     M = _random_spd(n, density, seed)
-    f = tsc.SparseCholesky(M, B=B)
+    f = tsc.SparseCholesky(M, B=B, device="cpu")
     pl = f.plan
     st_t, st_j = _ur_storage(M, f)
     L_t = tsc.factor_tiles(st_t, f.levels, reg)
@@ -291,7 +310,7 @@ def test_level_factor_matches_reference_ur(n, density, B, seed, reg):
 def _one_tile_plan(D, B):
     """A one-column plan whose only tile holds D's lower triangle."""
     M = sp.csc_matrix(np.ones((B, B)))
-    f = tsc.SparseCholesky(M, B=B)
+    f = tsc.SparseCholesky(M, B=B, device="cpu")
     st = torch.zeros(f.plan.nslot, B, B, dtype=torch.float64)
     st[f.plan.dslot[0]] = torch.as_tensor(np.tril(D))
     return f, st
@@ -329,7 +348,7 @@ def test_escalation_rungs_match_reference(kind, rung):
 def test_wrappers_count_no_launch_on_cpu():
     kernels.reset_launch_counts()
     M = _random_spd(60, 0.08, 6)
-    f = tsc.SparseCholesky(M, B=16)
+    f = tsc.SparseCholesky(M, B=16, device="cpu")
     f.solve(f.factor(M), np.ones(60))
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
