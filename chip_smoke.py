@@ -3,11 +3,13 @@
     python3 chip_smoke.py
 
 1. Kernel phase: builds every CUDA kernel of the port from csrc/ (one nvcc
-   per source, in parallel) and holds K1-K7 against their plain-PyTorch
-   twins on the card at the shapes the solver gives them, with the
-   tolerance stated (K1, K2, K6 within error bounds; K3, K4, K5, K7 bit
-   for bit); times both, and the card's least time (bound) for the work.
-   K8-K10 follow the sparse path (3.), on its plans.
+   per source, in parallel) and holds K1-K7, the f32 builds of K1-K3 and
+   K11 (the double-float GEMV and GEMV-transpose) against their
+   plain-PyTorch twins on the card at the shapes the solver gives them,
+   with the tolerance stated (K1, K2, K6, K11 and the f32 K1, K2 within
+   error bounds; K3, K4, K5, K7 and the f32 K3 bit for bit); times both,
+   and the card's least time (bound) for the work.  K8-K10 follow the
+   sparse path (4.), on its plans.
 2. Dense path: sedumi_tpu_torch.sedumi() on all six bundled examples at
    full size (quantum, nb, arch0, control07, trto3, OH), plus nb with one
    redundant all-zero constraint (its Schur complement is singular, so
@@ -17,7 +19,16 @@
    published optimum, pinf = dinf = 0, numerr < 2); the others must finish
    with finite outputs, and each prints its rel, pinf, dinf, numerr and
    phases.
-3. Sparse path: five problems through the sparse tile engine
+3. Mixed-ladder path: pars.dtype='mixed' (f32 -> hybrid -> host64 ->
+   dd64) on nb, arch0, control07, nb+zero-row and a dense SOCP from the
+   reference's feasible_problem generator (copied below), whose hybrid
+   phase takes the double-float operator: K1-f32 must launch in every
+   solve, K2-f32 on arch0, K3-f32 on nb+zero-row and K11 on the SOCP.  The
+   solves the reference package itself passes with 'mixed' on a CPU (nb,
+   arch0, nb+zero-row: the reference gate; the SOCP: its own test's gate
+   against the f64 solve) are gated; control07 (rel 1.288e-6, numerr 1 in
+   the reference) must finish finite.
+4. Sparse path: five problems through the sparse tile engine
    (SPARSE_SOLVES: an LP with m = 20000, SDPs with m = 5000 and m = 1200,
    an SOCP with m = 850, an LP with three dense columns).  Each must take
    the sparse engine, finish with finite outputs and launch K8-K10; the
@@ -29,7 +40,7 @@
    on the plans these solves built (LP 20k and SDP 5k).
    Launch counts are zeroed just before each path and read just after;
    every kernel must have launched on the paths.
-4. Prints {"kernels": [...]}, the card's name and power limit, and as the
+5. Prints {"kernels": [...]}, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.  Any failure exits non-zero
    before the last line.  Without a CUDA device it exits 1 at once.
 """
@@ -45,15 +56,17 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the f64
-# tensor-core rate, the highest f64 rate the card has
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the f64
+# tensor-core rate (the highest f64 rate the card has) and the f32 rate
+# outside the tensor cores, which the f32 kernels use
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_PER_S = 67e12
+PEAK_F32_PER_S = 67e12
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_F64_PER_S):
     t_b = nbytes / PEAK_BYTES_PER_S
-    t_f = flops / PEAK_F64_PER_S
+    t_f = flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -476,6 +489,251 @@ def check_dd_panel_chol(dev, gen):
 
 
 # --------------------------------------------------------------------------
+# the precision ladder's kernels: f32 builds of K1-K3, and K11
+# --------------------------------------------------------------------------
+
+U32 = 2.0**-24     # f32 unit roundoff
+UDF = 2.0**-48     # double-float resolution
+
+
+def check_dd_residual_f32(dev, gen):
+    """K1-f32 at control07's Schur order m = 666, cond ~ 1e6 (what f32
+    carries), v = M^-1 rhs.  Both versions are compensated: each is within
+    u |r| + c u^2 sum_j |M_ij v_j| of the exact residual (u = 2^-24), c =
+    2L + 10 for the kernel (L = ceil(n/32) TwoSums per lane, 5 tree
+    levels) and n + 2D + 4 for the plain pairwise tree (depth D, its e
+    terms summed in any order), so the tolerance is
+    2u|r| + (n + 2L + 2D + 14) u^2 sum_j |M_ij v_j|."""
+    from sedumi_tpu_torch import kernels
+    from sedumi_tpu_torch.pcg import dd_matvec_residual, \
+        dd_matvec_residual_plain
+
+    m = 666
+    M = spd_with_cond(m, 1e6, gen).to(torch.float32).to(dev)
+    rhs = torch.randn(m, generator=gen, dtype=torch.float64).to(
+        torch.float32).to(dev)
+    v = torch.linalg.solve(M.double(), rhs.double()).float()
+    n0 = kernels.LAUNCHES["dd_matvec_residual_f32"]
+    r_k = dd_matvec_residual(M, v, rhs)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["dd_matvec_residual_f32"] != n0 + 1:
+        fail("dd_matvec_residual did not launch its f32 kernel")
+    r_p = dd_matvec_residual_plain(M, v, rhs)
+    L, D = -(-m // 32), int(np.ceil(np.log2(m)))
+    c = m + 2 * L + 2 * D + 14
+    S = torch.abs(M.double()) @ torch.abs(v.double())
+    err = torch.abs(r_k.double() - r_p.double())
+    tol = 2 * U32 * torch.abs(r_p.double()) + c * U32 * U32 * S
+    print(f"K1-f32 dd_matvec_residual m={m}: max|r|="
+          f"{float(r_p.abs().max()):.3e} max err={float(err.max()):.3e} "
+          f"worst err/tol={float((err / tol).max()):.3e} (c={c})",
+          flush=True)
+    if not bool(torch.all(err <= tol)):
+        fail("dd_matvec_residual f32 kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: dd_matvec_residual(M, v, rhs), 200)
+    plain = cuda_ms(lambda: dd_matvec_residual_plain(M, v, rhs), 20)
+    lib = cuda_ms(lambda: torch.addmv(rhs, M, v, alpha=-1.0), 200)
+    b_ms, b_by = bound_ms(4.0 * (m * m + 3 * m), 11.0 * m * m,
+                          PEAK_F32_PER_S)
+    return dict(name="dd_matvec_residual_f32", route="cuda",
+                source="sedumi_tpu_torch/csrc/dd_residual.cu",
+                replaces="sedumi_tpu/pcg.py:56",
+                max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+
+def check_psd_coo_f32(dev, gen):
+    """K2-f32 on arch0's COO bucket, built at f32 as the ladder's f32 and
+    hybrid phases build it.  Both versions form the same sums of products
+    in f32 in different orders: each is within gamma_N sum|terms| of the
+    exact value, N = pad2 + Tmax + 3 (Tmax the longest row of the gather),
+    so the tolerance is 2 N u M_abs, with M_abs the same function of |W|,
+    |gv| and |b_val| in f64."""
+    from sedumi_tpu_torch import kernels, transform
+    from sedumi_tpu_torch.examples import load_example
+    from sedumi_tpu_torch.opA import build_coo_aop
+    from sedumi_tpu_torch.params import Pars
+    from sedumi_tpu_torch.schur import _psd_contrib_coo_kernel, \
+        _psd_contrib_coo_plain, psd_gram
+
+    ex = load_example("arch0")
+    prob = transform.pretransfo(ex.At, ex.b, ex.c, ex.K, Pars(fid=0))
+    aop = build_coo_aop(prob.At, prob.c, prob.layout, device=dev,
+                        dtype=torch.float32)
+    bi = [i for i, meta in enumerate(aop.s_meta) if meta[0] == "coo"][0]
+    part, (rep, k, d, G, pad2, T) = aop.s_parts[bi], aop.s_meta[bi]
+    mp1 = aop.m + 1
+    r = (torch.randn(k, d, d, generator=gen, dtype=torch.float64) / d ** 0.5
+         + torch.eye(d, dtype=torch.float64)).to(torch.float32).to(dev)
+    W = psd_gram(r)
+    n0 = kernels.LAUNCHES["psd_contrib_coo_f32"]
+    M_k = _psd_contrib_coo_kernel(part, k, d, G, pad2, mp1, W)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["psd_contrib_coo_f32"] != n0 + 1:
+        fail("_psd_contrib_coo did not launch its f32 kernels")
+    M_p = _psd_contrib_coo_plain(part, k, d, G, pad2, mp1, W)
+    absp = {key: (v.abs().double() if v.is_floating_point() else v)
+            for key, v in part.items()}
+    M_abs = _psd_contrib_coo_plain(absp, k, d, G, pad2, mp1,
+                                   W.abs().double())
+    tmax = int(torch.diff(part["b_rowptr"]).max())
+    c = 2 * (pad2 + tmax + 3)
+    err = torch.abs(M_k.double() - M_p.double())
+    ratio = float((err / (c * U32 * M_abs).clamp_min(1e-300)).max())
+    print(f"K2-f32 psd_contrib_coo arch0 (G={G} pad2={pad2} Tmax={tmax}): "
+          f"max|M|={float(M_p.abs().max()):.3e} max err="
+          f"{float(err.max()):.3e} worst err/tol={ratio:.3e} (c={c})",
+          flush=True)
+    if not bool(torch.all(err <= c * U32 * M_abs)):
+        fail("psd_contrib_coo f32 kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: _psd_contrib_coo_kernel(part, k, d, G, pad2, mp1,
+                                                 W), 50)
+    plain = cuda_ms(lambda: _psd_contrib_coo_plain(part, k, d, G, pad2, mp1,
+                                                   W), 5)
+    flops = 2.0 * G * pad2 * d * d + 2.0 * T * mp1
+    nbytes = 4.0 * (k * d * d + G * pad2 + T + mp1 * mp1) \
+        + 8.0 * (3 * G * pad2 + 2 * G + 2 * T + mp1 + 1)
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32_PER_S)
+    return dict(name="psd_contrib_coo_f32", route="cuda",
+                source="sedumi_tpu_torch/csrc/psd_coo.cu",
+                replaces="sedumi_tpu/schur.py:60",
+                max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_ldl_masked_f32(dev, gen):
+    """K3-f32 on the indefinite 174 x 174 matrix of the f64 check, in f32:
+    masks, pivots and L bit for bit against the plain version."""
+    from sedumi_tpu_torch import kernels
+    from sedumi_tpu_torch.chol import ldl_masked, ldl_masked_plain
+
+    m = 174
+    M = indefinite_matrix(m, gen).to(torch.float32).to(dev)
+    n0 = kernels.LAUNCHES["ldl_masked_f32"]
+    fk = ldl_masked(M)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["ldl_masked_f32"] != n0 + 1:
+        fail("ldl_masked did not launch its f32 kernel")
+    fp_ = ldl_masked_plain(M)
+    n_skip, n_add = int(fp_.skip.sum()), int((fp_.diagadd > 0).sum())
+    same = all(bit_diff(a, b)[0] for a, b in
+               ((fk.L, fp_.L), (fk.d, fp_.d), (fk.diagadd, fp_.diagadd)))
+    same = same and bool(torch.equal(fk.skip, fp_.skip))
+    fin = torch.isfinite(fp_.d)
+    err = max(bit_diff(fk.L, fp_.L)[1], bit_diff(fk.d, fp_.d)[1])
+    print(f"K3-f32 ldl_masked m={m}: skipped {n_skip}, added {n_add}, bit "
+          f"for bit {same}", flush=True)
+    if not (n_skip > 0 and n_add > n_skip):
+        fail("the K3-f32 test matrix did not trigger both add and skip")
+    if not (same and torch.equal(torch.isfinite(fk.d), fin)):
+        fail("ldl_masked f32 kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: ldl_masked(M), 10)
+    plain = cuda_ms(lambda: ldl_masked_plain(M), 2, warmup=1)
+    keep = (~fp_.skip).cpu().numpy()
+    flops = sum(3.0 * (m - j - 1) * (m - j) / 2 + (m - j - 1)
+                for j in range(m) if keep[j])
+    b_ms, b_by = bound_ms(4.0 * (2 * m * m + 3 * m) + m, flops,
+                          PEAK_F32_PER_S)
+    return dict(name="ldl_masked_f32", route="cuda",
+                source="sedumi_tpu_torch/csrc/ldl_masked.cu",
+                replaces="sedumi_tpu/chol.py:95",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def check_df_gemv(dev, gen):
+    """K11's two entry points against the plain versions (the reference's
+    chunked pairwise tree) on nb's double-float operator (its one Lorentz
+    bucket, [124, 2383]) and at a full width of [1001, 65536] (four of the
+    reference's 16384-chunks).  In df arithmetic (u^2 = 2^-48) each version
+    is within c u^2 S of the exact product, S = sum_j |a_j x_j|: the
+    kernel with c = 3L + 30 (L terms per sequential sum: ceil(n/32) lanes'
+    worth for df_matvec, the rows for df_vecmat), the reference's tree with
+    c = (D + k)(D + k + 2) + 7 (depth D over k chunks).  Tolerance: the sum
+    of the two."""
+    from sedumi_tpu_torch import df, kernels, transform
+    from sedumi_tpu_torch.examples import load_example
+    from sedumi_tpu_torch.params import Pars
+
+    ex = load_example("nb")
+    prob = transform.pretransfo(ex.At, ex.b, ex.c, ex.K, Pars(fid=0))
+    adf = df.build_df_aop(prob.At, prob.c, prob.layout, device=dev)
+    nb_pair = max([adf.Al] + list(adf.Aq) + list(adf.As),
+                  key=lambda p: p[0].numel())
+    wide64 = torch.randn(1001, 65536, generator=gen,
+                         dtype=torch.float64).to(dev)
+    cases = [("nb", nb_pair), ("1001x65536", df.df_split64(wide64))]
+    worst = {"df_matvec": (0.0, 0.0), "df_vecmat": (0.0, 0.0)}
+    for label, (Ah, Al) in cases:
+        rows, n = Ah.shape
+        A64 = Ah.double() + Al.double()
+        for fn in ("df_matvec", "df_vecmat"):
+            length = rows if fn == "df_vecmat" else n
+            x64 = torch.randn(length, generator=gen,
+                              dtype=torch.float64).to(dev)
+            xh, xl = df.df_split64(x64)
+            x_df = xh.double() + xl.double()
+            n0 = kernels.LAUNCHES[fn]
+            if fn == "df_matvec":
+                got = df.df_matvec(Ah, Al, xh, xl)
+                want = df.df_matvec_plain(Ah, Al, xh, xl)
+                S = torch.abs(A64) @ torch.abs(x_df)
+                L, D, k = -(-n // 32) + 5, 14, -(-n // 16384)
+            else:
+                got = df.df_vecmat(xh, xl, Ah, Al)
+                want = df.df_vecmat_plain(xh, xl, Ah, Al)
+                S = torch.abs(x_df) @ torch.abs(A64)
+                L, D, k = rows, int(np.ceil(np.log2(rows))), 1
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES[fn] != n0 + 1:
+                fail(f"{fn} did not launch its kernel")
+            c = (3 * L + 30) + ((D + k) * (D + k + 2) + 7)
+            err = torch.abs(df.df_to64(*got) - df.df_to64(*want))
+            ratio = float((err / (c * UDF * S).clamp_min(1e-300)).max())
+            worst[fn] = (max(worst[fn][0], float(err.max())),
+                         max(worst[fn][1], ratio))
+            print(f"K11 {fn} {label} [{rows}, {n}]: max err="
+                  f"{float(err.max()):.3e} worst err/tol={ratio:.3e} "
+                  f"(c={c})", flush=True)
+            if not bool(torch.all(err <= c * UDF * S)):
+                fail(f"{fn} kernel outside its bound on {label}")
+    Ah, Al = cases[1][1]
+    A64 = Ah.double() + Al.double()
+    rows, n = Ah.shape
+    out = []
+    for fn in ("df_matvec", "df_vecmat"):
+        length = rows if fn == "df_vecmat" else n
+        xh, xl = df.df_split64(torch.randn(length, generator=gen,
+                                           dtype=torch.float64).to(dev))
+        x64 = xh.double() + xl.double()
+        if fn == "df_matvec":
+            ms = cuda_ms(lambda: df.df_matvec(Ah, Al, xh, xl), 50)
+            plain = cuda_ms(lambda: df.df_matvec_plain(Ah, Al, xh, xl), 3,
+                            warmup=1)
+            lib = cuda_ms(lambda: torch.mv(A64, x64), 50)
+        else:
+            ms = cuda_ms(lambda: df.df_vecmat(xh, xl, Ah, Al), 50)
+            plain = cuda_ms(lambda: df.df_vecmat_plain(xh, xl, Ah, Al), 3,
+                            warmup=1)
+            lib = cuda_ms(lambda: torch.mv(A64.T, x64), 50)
+        # read the hi/lo pairs and x once, write the df result; ~25 f32
+        # operations per element
+        b_ms, b_by = bound_ms(8.0 * (rows * n + length)
+                              + 8.0 * (rows + n - length),
+                              25.0 * rows * n, PEAK_F32_PER_S)
+        out.append(dict(name=fn, route="cuda",
+                        source="sedumi_tpu_torch/csrc/df_gemv.cu",
+                        replaces="sedumi_tpu/df.py:"
+                        + ("94" if fn == "df_matvec" else "127"),
+                        max_abs_err=worst[fn][0], ms=ms, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    print(f"K11 timed at 1001x65536 (hi/lo {8 * rows * n / 1e6:.0f} MB); "
+          f"library: torch.mv on the f64 operator (f64 rounding, not df)",
+          flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 # sparse-engine kernels (K8-K10, and K2's group layout), on the plans the
 # sparse path built
 # --------------------------------------------------------------------------
@@ -750,14 +1008,14 @@ def with_zero_row(ex):
                        b=np.concatenate([ex.b, [0.0]]))
 
 
-def run_example(ex, gate: bool):
+def run_example(ex, gate: bool, pars=None):
     import sedumi_tpu_torch as st
     from sedumi_tpu_torch import kernels
 
     before = dict(kernels.LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.time()
-    x, y, info = st.sedumi(ex.At, ex.b, ex.c, ex.K, {"fid": 0},
+    x, y, info = st.sedumi(ex.At, ex.b, ex.c, ex.K, {"fid": 0, **(pars or {})},
                            device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -765,18 +1023,91 @@ def run_example(ex, gate: bool):
     by = float(np.real(np.vdot(ex.b, y)))
     rel = max(abs(cx - ex.optval), abs(by - ex.optval)) / abs(ex.optval)
     counts = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
-    print(f"{ex.name}: iter={info['iter']} cx={cx!r} by={by!r} "
+    counts = {k: v for k, v in counts.items() if v}
+    label = ex.name + (f" {json.dumps(pars)}" if pars else "")
+    print(f"{label}: iter={info['iter']} cx={cx!r} by={by!r} "
           f"rel={rel:.3e} pinf={info['pinf']} dinf={info['dinf']} "
           f"numerr={info['numerr']} wall={wall:.2f}s "
           f"phases={json.dumps(info['phases'])} launches={counts}",
           flush=True)
     finite = bool(np.all(np.isfinite(x)) and np.all(np.isfinite(y)))
     if not finite:
-        fail(f"{ex.name}: non-finite solution")
+        fail(f"{label}: non-finite solution")
     if gate and not (rel <= 1e-6 and info["pinf"] == 0
                      and info["dinf"] == 0 and info["numerr"] < 2):
-        fail(f"{ex.name}: reference gate not met")
+        fail(f"{label}: reference gate not met")
     return counts, info
+
+
+def feasible_problem(K: dict, m: int, seed: int, density: float = 0.8):
+    """A copy of the reference's generators.feasible_problem for real LP
+    and Lorentz cones (the same draws from numpy.random.default_rng(seed)):
+    a strictly feasible pair (x0, y0, z0), b = A x0, c = A'y0 + z0.
+    Returns (At, b, c) with At in the SeDuMi transpose convention."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+
+    def interior():
+        parts = [rng.uniform(0.5, 2.0, K.get("l", 0))]
+        for d in K.get("q", []):
+            bar = rng.normal(size=d - 1) * 0.4
+            parts.append(np.concatenate(
+                [[np.linalg.norm(bar) + rng.uniform(0.5, 1.5)], bar]))
+        return np.concatenate(parts)
+
+    x0, z0 = interior(), interior()
+    y0 = rng.normal(size=m)
+    n = x0.size
+    A = rng.normal(size=(m, n))
+    A *= rng.random((m, n)) < density
+    return sp.csc_matrix(A.T), A @ x0, A.T @ y0 + z0
+
+
+# The mixed-ladder path's dense SOCP: eight Lorentz cones of order 50 and
+# m = 120 (nb's scale), A 80% dense.  Of the bundled examples none takes
+# the double-float operator in the reference's ladder: nb, whose A is
+# dense, rejects an f32 direction before real progress, so its f32
+# iterates are discarded and the hybrid rung skipped (reference
+# solver.py:855-875), and the others' A are under 2% dense.  This instance
+# enters the hybrid phase in the reference and in the port on a CPU; where
+# the f32 phase ends moves with the f32 summation order (reference: f32 7,
+# a rejected hybrid step, host64 9; port: f32 5, hybrid 2, host64 7).
+SOCP_DENSE = ({"q": [50] * 8}, 120, 7)
+
+
+def run_mixed_socp():
+    """The dense SOCP with pars.dtype='mixed' against its f64 solve: the
+    gate of the reference's test_mixed_ladder_with_df_operator_e2e
+    (pinf = dinf = 0, numerr = 0, c'x within 1e-6 (1 + |c'x|))."""
+    import sedumi_tpu_torch as st
+    from sedumi_tpu_torch import kernels
+
+    K, m, seed = SOCP_DENSE
+    At, b, c = feasible_problem(K, m, seed)
+    x64, _, _ = st.sedumi(At, b, c, K, {"fid": 0}, device="cuda")
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    x, y, info = st.sedumi(At, b, c, K, {"fid": 0, "dtype": "mixed"},
+                           device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+    cx64, cx = float(c @ x64), float(c @ x)
+    rel = abs(cx - cx64) / (1.0 + abs(cx64))
+    print(f"socp-dense (q 8x50, m=120) {{\"dtype\": \"mixed\"}}: "
+          f"iter={info['iter']} cx={cx!r} cx_f64={cx64!r} rel={rel:.3e} "
+          f"pinf={info['pinf']} dinf={info['dinf']} "
+          f"numerr={info['numerr']} wall={wall:.2f}s "
+          f"phases={json.dumps(info['phases'])} "
+          f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
+    if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y))):
+        fail("socp-dense: non-finite solution")
+    if not (info["pinf"] == 0 and info["dinf"] == 0 and info["numerr"] == 0
+            and rel <= 1e-6):
+        fail("socp-dense: the reference test's gate not met")
+    return counts
 
 
 # The sparse problems: copies of the generators of
@@ -975,11 +1306,21 @@ def main() -> None:
     print(f"built kernels in {time.time() - t0:.1f}s: "
           + ", ".join(f"{s} {t:.1f}s" for s, t in times.items()), flush=True)
 
+    # f32 matrix products must run at full f32, never TF32
+    print(f"torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"float32_matmul_precision={torch.get_float32_matmul_precision()}",
+          flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmul is on: the f32 phases need full f32 products")
+
     gen = torch.Generator().manual_seed(20261016)
     rows = [check_dd_residual(dev, gen), check_psd_coo(dev, gen),
             check_ldl_masked(dev, gen), check_ozaki_split(dev, gen),
             check_dd_elem(dev, gen), check_dd_gemv(dev, gen),
-            check_dd_panel_chol(dev, gen)]
+            check_dd_panel_chol(dev, gen), check_dd_residual_f32(dev, gen),
+            check_psd_coo_f32(dev, gen), check_ldl_masked_f32(dev, gen)]
+    rows += check_df_gemv(dev, gen)
     torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()
@@ -989,19 +1330,48 @@ def main() -> None:
     dd_kernels = ("ozaki_split", "dd_accumulate", "dd_gemv", "dd_panel_chol")
     for name, gate in plan:
         counts, info = run_example(load_example(name), gate)
-        if counts["dd_matvec_residual"] == 0:
+        if counts.get("dd_matvec_residual", 0) == 0:
             fail(f"{name}: the compensated-residual kernel never ran")
         if name == "arch0":
-            if counts["psd_contrib_coo"] == 0:
+            if counts.get("psd_contrib_coo", 0) == 0:
                 fail("arch0: the sparse PSD Schur kernel never ran")
             if "dd64" not in info["phases"]:
                 fail("arch0 never entered the dd64 phase")
-            if any(counts[k] == 0 for k in dd_kernels):
+            if any(counts.get(k, 0) == 0 for k in dd_kernels):
                 fail("arch0: a dd64 kernel never ran in its solve")
     counts, _ = run_example(with_zero_row(load_example("nb")), True)
-    if counts["ldl_masked"] == 0:
+    if counts.get("ldl_masked", 0) == 0:
         fail("nb+zero-row: the masked-LDL' fallback never ran")
     total = dict(kernels.LAUNCHES)
+    torch.cuda.empty_cache()
+
+    # the mixed precision ladder, its counts zeroed just before and read
+    # just after.  Gated where the reference package meets the gate with
+    # 'mixed' on a CPU: nb (f32 8, host64 16; rel 9.17e-8), arch0 (f32 13,
+    # host64 44, dd64 8; rel 4.85e-7), nb+zero-row (as nb); control07
+    # (f32 15, hybrid 5, host64 12, dd64 11) lands at rel 1.288e-6, numerr
+    # 1 there, so it is ungated
+    kernels.reset_launch_counts()
+    mixed = {"dtype": "mixed"}
+    t_mixed = time.time()
+    for name, gate in (("nb", True), ("arch0", True), ("control07", False),
+                       ("nb+zero-row", True)):
+        ex = with_zero_row(load_example("nb")) if name == "nb+zero-row" \
+            else load_example(name)
+        counts, info = run_example(ex, gate, mixed)
+        if "f32" not in info["phases"] \
+                or counts.get("dd_matvec_residual_f32", 0) == 0:
+            fail(f"{name}: the f32 phase or its K1-f32 residual never ran")
+        if name == "arch0" and counts.get("psd_contrib_coo_f32", 0) == 0:
+            fail("arch0: K2-f32 never formed the f32 Schur complement")
+        if name == "nb+zero-row" and counts.get("ldl_masked_f32", 0) == 0:
+            fail("nb+zero-row: the f32 masked-LDL' fallback never ran")
+    counts = run_mixed_socp()
+    if counts["df_matvec"] == 0 or counts["df_vecmat"] == 0:
+        fail("socp-dense: the double-float operator (K11) never ran")
+    print(f"mixed-ladder path: {time.time() - t_mixed:.1f}s", flush=True)
+    for k, v in kernels.LAUNCHES.items():
+        total[k] += v
     torch.cuda.empty_cache()
 
     # the sparse path, its counts zeroed just before and read just after

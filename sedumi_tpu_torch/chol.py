@@ -5,12 +5,13 @@ Counterpart of the reference's chol.py (reference analog: blkchol.c /
 blkchol2.c, a supernodal LDL' that never fails):
 
 * chol_factor / chol_solve -- library Cholesky (cuSOLVER / LAPACK) of
-  M + reg*scale*I and two library triangular solves.  The reference's
-  Jacobi pre-scaling is for f32 factors only and has no f64 role.
+  M + reg*scale*I, Jacobi-scaled by default for f32 factors (the
+  reference's chol.py:38-62), and two library triangular solves.
 * ldl_masked -- kernel K3: LDL' with the canceltol add / maxu skip pivot
   rules (blkchol2.c:96-167), the fallback when the Cholesky fails.  On a
-  CUDA tensor it launches csrc/ldl_masked.cu (and raises if it cannot); on
-  a CPU tensor it runs ldl_masked_plain.
+  CUDA tensor it launches csrc/ldl_masked.cu (its f64 build, or K3-f32 for
+  an f32 matrix; it raises if it cannot); on a CPU tensor it runs
+  ldl_masked_plain.
 """
 
 from __future__ import annotations
@@ -24,24 +25,39 @@ from .linalg_ops import cholesky
 
 
 class CholFactor(NamedTuple):
-    L: torch.Tensor       # lower factor of M + reg*scale*I
+    L: torch.Tensor       # lower factor of the (Jacobi-scaled) M + reg*s*I
+    d: torch.Tensor | None  # Jacobi scale: L L' = (M + reg*s*I)/(d d');
+    #                         None when unscaled
     ok: torch.Tensor      # scalar bool: factor finite
 
 
-def chol_factor(M: torch.Tensor, reg) -> CholFactor:
-    """Cholesky of M + reg*s*I with s = mean|diag M|; ok = all(isfinite(L))
-    (reference chol.py:59)."""
+def chol_factor(M: torch.Tensor, reg, jacobi: bool | None = None
+                ) -> CholFactor:
+    """Cholesky of M + reg*s*I with s = mean|diag M|, or of its Jacobi
+    scaling D^-1/2 (M + reg*s*I) D^-1/2 (default: for f32 only, where it
+    absorbs the ~1/mu^2 diagonal range that an f32 factor cannot carry);
+    ok = all(isfinite(L)) (reference chol.py:38-62).  The unscaled factor
+    skips the reference's division by d = 1, which is exact."""
     m = M.shape[0]
-    scale = torch.mean(torch.abs(torch.diagonal(M))) \
-        + torch.finfo(M.dtype).tiny
+    if jacobi is None:
+        jacobi = M.dtype == torch.float32
+    tiny = torch.finfo(M.dtype).tiny
+    scale = torch.mean(torch.abs(torch.diagonal(M))) + tiny
     Mr = M + (reg * scale) * torch.eye(m, dtype=M.dtype, device=M.device)
+    dg = None
+    if jacobi:
+        dg = torch.sqrt(torch.clamp_min(torch.diagonal(Mr), tiny))
+        Mr = Mr / (dg[:, None] * dg[None, :])
     L = cholesky(Mr)
-    return CholFactor(L=L, ok=torch.all(torch.isfinite(L)))
+    return CholFactor(L=L, d=dg, ok=torch.all(torch.isfinite(L)))
 
 
 def chol_solve(f: CholFactor, b: torch.Tensor) -> torch.Tensor:
+    if f.d is not None:
+        b = b / f.d
     y = torch.linalg.solve_triangular(f.L, b[:, None], upper=False)
-    return torch.linalg.solve_triangular(f.L.T, y, upper=True)[:, 0]
+    x = torch.linalg.solve_triangular(f.L.T, y, upper=True)[:, 0]
+    return x if f.d is None else x / f.d
 
 
 def refine_solve(matvec: Callable[[torch.Tensor], torch.Tensor], f,
@@ -110,7 +126,8 @@ def ldl_masked_plain(M: torch.Tensor, canceltol: float = 1e-12,
 
 def ldl_masked(M: torch.Tensor, canceltol: float = 1e-12, maxu: float = 5e5,
                abstol: float = 1e-20, skip_pivots: bool = True) -> LdlFactor:
-    """Masked LDL' (kernel K3 on the card); see ldl_masked_plain."""
+    """Masked LDL' (kernel K3 on the card, K3-f32 for an f32 matrix); see
+    ldl_masked_plain."""
     if not M.is_cuda:
         return ldl_masked_plain(M, canceltol, maxu, abstol, skip_pivots)
     m = M.shape[0]
@@ -118,19 +135,21 @@ def ldl_masked(M: torch.Tensor, canceltol: float = 1e-12, maxu: float = 5e5,
         raise ValueError(f"ldl_masked needs a square matrix, got "
                          f"{tuple(M.shape)}")
     A = M.contiguous().clone()
-    kernels.check_cuda(A, dtype=torch.float64)
+    f32 = A.dtype == torch.float32
+    kernels.check_cuda(A, dtype=torch.float32 if f32 else torch.float64)
     L = torch.zeros(m, m, dtype=A.dtype, device=A.device)
     d = torch.empty(m, dtype=A.dtype, device=A.device)
     skip = torch.empty(m, dtype=torch.uint8, device=A.device)
     diagadd = torch.empty(m, dtype=A.dtype, device=A.device)
     absd = torch.abs(torch.diagonal(A)).contiguous()
     col = torch.empty(m, dtype=A.dtype, device=A.device)
-    kernels.launch("ldl_masked.cu", "ldl_masked_launch",
+    name = "ldl_masked_f32" if f32 else "ldl_masked"
+    kernels.launch("ldl_masked.cu", name + "_launch",
                    A.data_ptr(), L.data_ptr(), d.data_ptr(),
                    skip.data_ptr(), diagadd.data_ptr(), absd.data_ptr(),
                    col.data_ptr(), m, float(canceltol), float(maxu),
                    float(abstol), int(bool(skip_pivots)))
-    kernels.LAUNCHES["ldl_masked"] += 1
+    kernels.LAUNCHES[name] += 1
     return LdlFactor(L=L, d=d, skip=skip.bool(), diagadd=diagadd)
 
 

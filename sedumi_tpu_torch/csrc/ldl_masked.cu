@@ -18,6 +18,11 @@
 // and add masks agree bit for bit.  max|col| propagates NaN like jnp.max:
 // a NaN in the column means no skip.
 //
+// The f64 build is K3; the f32 build, K3-f32, is the f32 phase's fallback
+// (reference ipm.py:127-132 with an f32 Schur complement): the same
+// template, with canceltol, maxu and abstol rounded to T first, as the
+// reference's weakly typed scalars are.
+//
 // Bound on the card: latency.  m sequential columns, each a block-wide
 // reduction and an O((m-j)^2 / 2) update: ~m^3/6 element updates.  It runs
 // only when the plain Cholesky of the Schur complement fails.
@@ -29,18 +34,17 @@ namespace {
 
 constexpr int THREADS = 1024;
 
-__global__ void ldl_masked_kernel(double *__restrict__ A,
-                                  double *__restrict__ L,
-                                  double *__restrict__ dvec,
+template <typename T>
+__global__ void ldl_masked_kernel(T *__restrict__ A, T *__restrict__ L,
+                                  T *__restrict__ dvec,
                                   unsigned char *__restrict__ skip,
-                                  double *__restrict__ diagadd,
-                                  double *__restrict__ absd,
-                                  double *__restrict__ col, int m,
-                                  double canceltol, double maxu,
-                                  double abstol, int skip_pivots) {
-  __shared__ double s_dj;
+                                  T *__restrict__ diagadd,
+                                  T *__restrict__ absd, T *__restrict__ col,
+                                  int m, T canceltol, T maxu, T abstol,
+                                  int skip_pivots) {
+  __shared__ T s_dj;
   __shared__ int s_skip;
-  __shared__ double s_max[THREADS / 32];
+  __shared__ T s_max[THREADS / 32];
   __shared__ int s_nan[THREADS / 32];
   const int tid = threadIdx.x;
   const int lane = tid & 31, wid = tid >> 5;
@@ -48,20 +52,20 @@ __global__ void ldl_masked_kernel(double *__restrict__ A,
 
   for (int j = 0; j < m; ++j) {
     if (tid == 0) {
-      const double ajj = A[j * mm + j];
-      const double lbj = canceltol * absd[j] + abstol;
+      const T ajj = A[j * mm + j];
+      const T lbj = canceltol * absd[j] + abstol;
       const bool cancelled = ajj < lbj;
       s_dj = cancelled ? lbj : ajj;
-      diagadd[j] = cancelled ? lbj - ajj : 0.0;
+      diagadd[j] = cancelled ? lbj - ajj : T(0);
     }
     __syncthreads();
-    const double dj = s_dj;
-    double mx = 0.0;
+    const T dj = s_dj;
+    T mx = 0;
     int nan = 0;
     for (int i = j + 1 + tid; i < m; i += THREADS) {
-      const double c = A[i * mm + j] / dj;
+      const T c = A[i * mm + j] / dj;
       col[i] = c;
-      const double ac = fabs(c);
+      const T ac = fabs(c);
       if (ac != ac)
         nan = 1;
       else
@@ -77,7 +81,7 @@ __global__ void ldl_masked_kernel(double *__restrict__ A,
     }
     __syncthreads();
     if (tid == 0) {
-      double bm = 0.0;
+      T bm = 0;
       int bn = 0;
       for (int w = 0; w < THREADS / 32; ++w) {
         bm = fmax(bm, s_max[w]);
@@ -86,15 +90,15 @@ __global__ void ldl_masked_kernel(double *__restrict__ A,
       const int do_skip = skip_pivots && !bn && bm > maxu;
       s_skip = do_skip;
       skip[j] = (unsigned char)do_skip;
-      dvec[j] = do_skip ? CUDART_INF : dj;
-      L[j * mm + j] = 1.0;
+      dvec[j] = do_skip ? T(CUDART_INF) : dj;
+      L[j * mm + j] = T(1);
     }
     __syncthreads();
     if (!s_skip) {
       // a non-finite pivot contributes no update (reference: where(isfinite))
-      const double djf = isfinite(dj) ? dj : 0.0;
+      const T djf = isfinite(dj) ? dj : T(0);
       for (int i = j + 1 + tid; i < m; i += THREADS) {
-        const double c = col[i];
+        const T c = col[i];
         L[i * mm + j] = c;
         absd[i] = absd[i] + djf * (c * c);
       }
@@ -114,6 +118,17 @@ __global__ void ldl_masked_kernel(double *__restrict__ A,
   }
 }
 
+template <typename T>
+int launch(T *A, T *L, T *d, unsigned char *skip, T *diagadd, T *absd,
+           T *col, int m, double canceltol, double maxu, double abstol,
+           int skip_pivots, void *stream) {
+  if (m > 0)
+    ldl_masked_kernel<T><<<1, THREADS, 0, (cudaStream_t)stream>>>(
+        A, L, d, skip, diagadd, absd, col, m, (T)canceltol, (T)maxu,
+        (T)abstol, skip_pivots);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ldl_masked_launch(double *A, double *L, double *d,
@@ -121,9 +136,16 @@ extern "C" int ldl_masked_launch(double *A, double *L, double *d,
                                  double *absd, double *col, int m,
                                  double canceltol, double maxu, double abstol,
                                  int skip_pivots, void *stream) {
-  if (m > 0)
-    ldl_masked_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
-        A, L, d, skip, diagadd, absd, col, m, canceltol, maxu, abstol,
-        skip_pivots);
-  return (int)cudaGetLastError();
+  return launch<double>(A, L, d, skip, diagadd, absd, col, m, canceltol,
+                        maxu, abstol, skip_pivots, stream);
+}
+
+extern "C" int ldl_masked_f32_launch(float *A, float *L, float *d,
+                                     unsigned char *skip, float *diagadd,
+                                     float *absd, float *col, int m,
+                                     double canceltol, double maxu,
+                                     double abstol, int skip_pivots,
+                                     void *stream) {
+  return launch<float>(A, L, d, skip, diagadd, absd, col, m, canceltol,
+                       maxu, abstol, skip_pivots, stream);
 }

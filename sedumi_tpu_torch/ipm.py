@@ -3,11 +3,17 @@ Sturm wide-region predictor-corrector -- one iteration as a function of
 the state.
 
 Counterpart of the reference's ipm.py (reference analog: sedumi.m:428-571
-with wregion.m / sddir.m / sdfactor.m), f64 single phase.  The reference's
-device-side control flow (lax.cond at ipm.py:132, :666, :907, :1097 and
-the backtracking lax.while_loop at :1177) runs here as host branches: the
-host reads the gate's scalar and takes one side.  Element-wise selects
+with wregion.m / sddir.m / sdfactor.m).  The reference's device-side
+control flow (lax.cond at ipm.py:132, :666, :907, :1097 and the
+backtracking lax.while_loop at :1177) runs here as host branches: the host
+reads the gate's scalar and takes one side.  Element-wise selects
 (jnp.where on tensors) stay on the device as torch.where.
+
+Precision (reference ipm.py:314-370): make_step's `dtype` is the state's
+(f64, or f32 in the ladder's f32 phase); a lower `compute_dtype` (f32 over
+an f64 state) is the hybrid phase: f64 state, residuals and direction
+accumulation, f32 scaling, Schur formation and solves, with defect
+correction against the f64 residuals.  Every eps and tiny is its dtype's.
 
 The embedding solved is
     A x - b tau = 0,  A'y + z - c tau = 0,  c'x - b'y + kappa = 0,
@@ -28,15 +34,13 @@ from . import wregion as wr
 from .chol import LdlFactor, chol_factor, chol_solve, ldl_masked, \
     ldl_solve, refine_solve
 from .cones import Layout
+from .fp import resolve_dtype, torch_dtype
 from .linalg_ops import cholesky, eigh_multi
 from .params import CholPars, Pars
 from .pcg import pcg, refine_solve_dd
 from .schur import build_schur
-from .structs import F64, ConeVec, cv_add, cv_dot, cv_eye, cv_leaves, \
-    cv_map, cv_neg, cv_norm, cv_scale, cv_sub, cv_zeros
-
-_EPS = float(np.finfo(np.float64).eps)
-_TINY = float(np.finfo(np.float64).tiny)
+from .structs import F64, ConeVec, cv_add, cv_cast, cv_dot, cv_eye, \
+    cv_leaves, cv_map, cv_neg, cv_norm, cv_scale, cv_sub, cv_zeros
 
 
 class IPMState(NamedTuple):
@@ -49,25 +53,42 @@ class IPMState(NamedTuple):
 
 class DenseSchurEngine:
     """Dense augmented Schur complement + Cholesky + compensated
-    refinement (reference ipm.py:72-189, f64 path).
+    refinement (reference ipm.py:72-189).
 
-    prepare() forms M = [A;c'] H [A;c']' and factors its leading m x m
-    block; when the Cholesky is not finite it falls back to the masked LDL'
-    (kernel K3) with pars.chol's add/skip rules.  solve() refines against
-    the dense matrix: two compensated refinement passes (kernel K1) then
-    PCG (cg.qprec=1), or plain refinement (qprec=0)."""
+    prepare() forms M = [A;c'] H [A;c']' in the operator's dtype and
+    factors its leading m x m block; when the Cholesky is not finite it
+    falls back to the masked LDL' (kernel K3, or K3-f32 for an f32 block)
+    with pars.chol's add/skip rules.  solve() refines against the dense
+    matrix: two compensated refinement passes (kernel K1 or K1-f32) then
+    PCG (cg.qprec=1), or plain refinement (qprec=0).
+
+    schur_dtype (pars.schur_dtype below the state's dtype) factors in that
+    lower precision and refines in full precision against ADA;
+    factor_dtype (set by make_step in the hybrid phase) factors the
+    f32-formed matrix in f64, Jacobi-scaled, and solves there."""
 
     def __init__(self, refine_iters: int = 4, qprec: int = 1,
+                 schur_dtype=None, factor_dtype=None,
                  chol_pars: CholPars | None = None):
         self.refine_iters = refine_iters
         self.qprec = qprec
+        self.schur_dtype = torch_dtype(schur_dtype) if schur_dtype else None
+        self.factor_dtype = torch_dtype(factor_dtype) if factor_dtype \
+            else None
         self.chol_pars = chol_pars if chol_pars is not None else CholPars()
 
     def prepare(self, aop, S: nt.Scaling, reg: float):
         m = aop.m
         Maug = build_schur(aop, S)
         ADA = Maug[:m, :m]
-        f = chol_factor(ADA, reg)
+        sd, fd = self.schur_dtype, self.factor_dtype
+        if fd is not None and fd != ADA.dtype:
+            ADA = ADA.to(fd)
+            f = chol_factor(ADA, reg, jacobi=True)
+        elif sd is not None and sd != ADA.dtype:
+            f = chol_factor(ADA.to(sd), reg)
+        else:
+            f = chol_factor(ADA, reg)
         fl = None
         ok = bool(f.ok)
         if not ok:
@@ -92,6 +113,27 @@ class DenseSchurEngine:
             def base_solve(b):
                 return ldl_solve(fl0, b)
 
+        if ADA.dtype != rhs.dtype:
+            # hybrid: the f64 factor of the f32-formed matrix solves in f64
+            # and hands back an f32 direction (the defect-correction loop
+            # measures the true f64 defects)
+            b64 = rhs.to(ADA.dtype)
+            x = base_solve(b64)
+            for _ in range(self.refine_iters):
+                x = x + base_solve(b64 - ADA @ x)
+            return x.to(rhs.dtype)
+        if f.L.dtype != ADA.dtype:
+            # low-precision factor (schur_dtype): refine in full precision
+            # against ADA, only the triangular solves cast down; an f32
+            # factor loses ~29 bits, each pass recovers up to ~23.  As in
+            # the reference, the LDL' fallback is not used on this path.
+            def solve_lo(b):
+                return chol_solve(f, b.to(f.L.dtype)).to(ADA.dtype)
+
+            x = solve_lo(rhs)
+            for _ in range(max(6, self.refine_iters)):
+                x = x + solve_lo(rhs - ADA @ x)
+            return x
         if not self.qprec:
             return refine_solve(lambda v: ADA @ v, base_solve, rhs,
                                 iters=self.refine_iters)
@@ -139,23 +181,29 @@ def cv_jmul(a: ConeVec, b: ConeVec) -> ConeVec:
 
 
 def init_state(layout: Layout, aop, b, normb: float, normc: float,
-               pars: Pars, device="cuda") -> IPMState:
+               pars: Pars, device="cuda", dtype=F64) -> IPMState:
     """Identity start on the central path (sdinit.m:42-105):
     mu0 = pars.mu * sqrt((1+||b||inf)(1+||c||inf))."""
     mu0 = pars.mu * math.sqrt((1.0 + normb) * (1.0 + normc))
     root = math.sqrt(mu0)
-    e = cv_eye(layout, device)
-    return IPMState(x=cv_scale(e, root), y=torch.zeros(aop.m, dtype=F64,
+    e = cv_eye(layout, device, dtype)
+    return IPMState(x=cv_scale(e, root), y=torch.zeros(aop.m, dtype=dtype,
                                                       device=device),
                     z=cv_scale(e, root),
-                    tau=torch.tensor(1.0, dtype=F64, device=device),
-                    kappa=torch.tensor(mu0, dtype=F64, device=device))
+                    tau=torch.tensor(1.0, dtype=dtype, device=device),
+                    kappa=torch.tensor(mu0, dtype=dtype, device=device))
 
 
-def make_recenter(layout: Layout):
+def cast_state(state: IPMState, dtype) -> IPMState:
+    """The iterate cast between precision phases (reference ipm.py:254)."""
+    return cv_cast(state, dtype)
+
+
+def make_recenter(layout: Layout, dtype=F64):
     """Pull an iterate strictly back into the cone interior by shifting
     x and z along e until lam_min >= 1e-2 mu / (1 + lam_max(other))
-    (reference ipm.make_recenter; a no-op for safely interior iterates)."""
+    (reference ipm.make_recenter; a no-op for safely interior iterates).
+    `dtype` is the iterate's: f64, or f32 for the hybrid phase's entry."""
 
     def lam_range(cv: ConeVec):
         mins, maxs = [], []
@@ -175,7 +223,7 @@ def make_recenter(layout: Layout):
         zmin, zmax = lam_range(z)
         rho_x = torch.clamp_min(1e-2 * mu / (1.0 + zmax) - xmin, 0.0)
         rho_z = torch.clamp_min(1e-2 * mu / (1.0 + xmax) - zmin, 0.0)
-        e = cv_eye(layout, y.device)
+        e = cv_eye(layout, y.device, dtype)
         return IPMState(
             x=cv_add(x, cv_scale(e, rho_x)), y=y,
             z=cv_add(z, cv_scale(e, rho_z)), tau=tau,
@@ -213,36 +261,92 @@ def _strict_interior(cv: ConeVec) -> torch.Tensor:
 
 
 def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
-              cscale: float = 1.0, engine=None, err_dens=None):
+              cscale: float = 1.0, dtype=None, engine=None,
+              compute_dtype=None, err_dens=None):
     """Build the one-iteration step function for a fixed layout.
 
-    The returned step(aop, b, rs, state, reg, sd_on=True) -> (new_state,
-    StepStats) runs on the device of its tensors.  The solver runs on
-    row-equilibrated A, b and on c/cscale; normb/normc and err_dens are the
-    original-data scales, so the reported stats are in original units
-    (reference ipm.make_step, f64: no hybrid compute dtype)."""
+    The returned step(aop, b, rs, state, reg, sd_on=True, aop_lo=None) ->
+    (new_state, StepStats) runs on the device of its tensors.  The solver
+    runs on row-equilibrated A, b and on c/cscale; normb/normc and err_dens
+    are the original-data scales, so the reported stats are in original
+    units (reference ipm.make_step).
+
+    `dtype` is the state's (default from pars.dtype: f64, or f32 for
+    'float32'); `aop` carries it.  A lower `compute_dtype` makes this the
+    hybrid phase (reference ipm.py:333-370): the scaling, the Schur
+    formation (on `aop_lo`, the operator in the compute dtype) and the
+    solves run in f32, the residuals and the direction accumulation in the
+    state's f64, with at least two defect-correction passes on the primal,
+    dual and gap rows; the Sturm centering and the Gondzio rounds are
+    skipped, and a direction whose defect stays above 50 is not taken."""
     nu = layout.nu
     herm_flags = tuple(b.herm for b in layout.s_buckets)
     den_p, den_d = err_dens if err_dens is not None else (1.0 + normb,
                                                           1.0 + normc)
     gamma = 0.99  # step fraction to the boundary
     defect_correct = max(0, int(pars.cg.refine))
+    dtype = resolve_dtype(pars.dtype) if dtype is None else torch_dtype(dtype)
+    cd = torch_dtype(compute_dtype) if compute_dtype is not None else dtype
+    hybrid = cd != dtype
+    if hybrid:
+        defect_correct = max(defect_correct, 2)
     if engine is None:
-        engine = DenseSchurEngine(qprec=int(pars.cg.qprec),
+        sdt = None
+        if pars.schur_dtype and torch_dtype(pars.schur_dtype) != cd:
+            sdt = pars.schur_dtype
+        engine = DenseSchurEngine(qprec=int(pars.cg.qprec), schur_dtype=sdt,
                                   chol_pars=pars.chol)
-    sturm = pars.alg == 2 and bool(pars.wr)
+    if hybrid and hasattr(engine, "factor_dtype") \
+            and engine.factor_dtype is None:
+        # f64 factor of the f32-formed matrix (reference ipm.py:366-369)
+        engine.factor_dtype = dtype
+    sturm = pars.alg == 2 and bool(pars.wr) and not hybrid
     use_wr = bool(pars.wr) and pars.alg != 0
+    fi_cd, eps_hi = torch.finfo(cd), torch.finfo(dtype).eps
+    # the PSD positivity probe runs in f32 when the compute dtype is f32
+    # (reference ipm.py:1125-1136); native-f64 phases probe in f64
+    probe_dt = torch.float32 if cd == torch.float32 else dtype
+    eps_pr = torch.finfo(probe_dt).eps
+
+    def lo(t):
+        return cv_cast(t, cd)
+
+    def hi(t):
+        return cv_cast(t, dtype)
+
+    def lo_safe(cv: ConeVec) -> ConeVec:
+        """Cast an interior f64 iterate to the compute dtype without losing
+        positivity: each block shifted by 4 eps_cd lam_max (reference
+        ipm.py:379-403).  The shift perturbs only the scaling, which the
+        f64 defect correction absorbs."""
+        if not hybrid:
+            return lo(cv)
+        q = []
+        for xq in cv.q:
+            x32 = lo(xq)
+            q.append(torch.cat([x32[..., :1] + 4 * fi_cd.eps * x32[..., :1],
+                                x32[..., 1:]], dim=-1))
+        s = []
+        for xs in cv.s:
+            x32 = lo(xs)
+            mx = torch.amax(torch.abs(torch.diagonal(x32, dim1=-2, dim2=-1)),
+                            dim=-1)
+            s.append(nt._add_diag(x32, (4 * fi_cd.eps * mx)[..., None]))
+        return ConeVec(l=lo(cv.l), q=tuple(q), s=tuple(s))
 
     def step(aop, b: torch.Tensor, rs: torch.Tensor, state: IPMState,
-             reg: float, sd_on: bool = True):
+             reg: float, sd_on: bool = True, aop_lo=None):
+        if aop_lo is None:
+            aop_lo = aop
         m = aop.m
         dev = b.device
         x, y, z, tau, kappa = state
-        zero_cv = cv_zeros(layout, dev)
-        e_scaled = cv_eye(layout, dev)
-        zero_s = torch.zeros((), dtype=F64, device=dev)
+        zero_cv = cv_zeros(layout, dev, cd)
+        e_scaled = cv_eye(layout, dev, cd)
+        zero_cd = torch.zeros((), dtype=cd, device=dev)
+        zero_hi = torch.zeros((), dtype=dtype, device=dev)
 
-        # --- residuals ---------------------------------------------------
+        # --- residuals (state dtype: the exact fixed point) --------------
         ax = aop.apply(x)
         Ax, cx = ax[:m], ax[m]
         rp = Ax - b * tau
@@ -257,65 +361,78 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
         for xl_, zl_ in zip(cv_leaves(x), cv_leaves(z)):
             if xl_.numel():
                 mf_abs = mf_abs + torch.sum(torch.abs(xl_ * zl_))
-        mu_floor = _EPS * mf_abs / (nu + 1.0)
+        mu_floor = eps_hi * mf_abs / (nu + 1.0)
 
-        # --- scaling + Schur ---------------------------------------------
-        S = nt.compute_scaling(x, z, herm=herm_flags)
-        ctx, ahc, chc, fac_ok = engine.prepare(aop, S, reg)
+        # --- scaling + Schur (compute dtype; the engine sees reg rounded
+        # to it, as the reference's lo(reg)) ------------------------------
+        S = nt.compute_scaling(lo_safe(x), lo_safe(z), herm=herm_flags)
+        ctx, ahc, chc, fac_ok = engine.prepare(
+            aop_lo, S, float(torch.tensor(reg, dtype=cd)))
+        tau_l, kappa_l, b_l = lo(tau), lo(kappa), lo(b)
 
         def solve(rhs):
             return engine.solve(ctx, rhs)
 
-        u = solve(b + ahc)
+        u = solve(b_l + ahc)
         # self-dual denominator, clamped to its cancellation noise floor
-        bu, au = b @ u, ahc @ u
-        D_raw = chc + bu - au + kappa / tau
-        D_floor = _EPS * (torch.abs(chc) + torch.abs(bu) + torch.abs(au)) \
-            + _TINY
+        bu, au = b_l @ u, ahc @ u
+        D_raw = chc + bu - au + kappa_l / tau_l
+        D_floor = fi_cd.eps * (torch.abs(chc) + torch.abs(bu)
+                               + torch.abs(au)) + fi_cd.tiny
         D = torch.where(torch.isfinite(D_raw) & (D_raw > D_floor), D_raw,
                         D_floor)
 
         def direction_raw(rp_rhs, rd_rhs: ConeVec, rg_rhs, rc: ConeVec,
                           r_tk):
-            """Newton direction for general right-hand sides (sddir.m):
+            """Newton direction for general right-hand sides (sddir.m), all
+            in the compute dtype:
                  A dx - b dtau = rp_rhs,  A'dy + dz - c dtau = rd_rhs,
                  c'dx - b'dy + dkappa = rg_rhs,  dx + H dz = W(lam^-1 o rc),
                  tau dkappa + kappa dtau = r_tk."""
             rcx = nt.scale_v_to_x(S, nt.lam_inv_jmul(S, rc))
             t = cv_sub(rcx, nt.H_apply(S, rd_rhs))
-            att = aop.apply(t)
+            att = aop_lo.apply(t)
             v = solve(rp_rhs - att[:m])
-            num = -rg_rhs + r_tk / tau + att[m] - (b - ahc) @ v
+            num = -rg_rhs + r_tk / tau_l + att[m] - (b_l - ahc) @ v
             dtau = num / D
             dy = v + dtau * u
-            dz = cv_sub(rd_rhs, aop.adj_y(dy, -dtau))
+            dz = cv_sub(rd_rhs, aop_lo.adj_y(dy, -dtau))
             dx = cv_sub(rcx, nt.H_apply(S, dz))
-            dkappa = (r_tk - kappa * dtau) / tau
+            dkappa = (r_tk - kappa_l * dtau) / tau_l
             return dx, dy, dz, dtau, dkappa
 
         def direction(rc: ConeVec, r_tk, r_scale: float = 1.0):
             """Direction for r_scale times the current residuals, polished
-            by pars.cg.refine monotone defect-correction passes (a pass is
-            kept only if it reduced the measured primal+gap defect)."""
+            by monotone defect-correction passes in the state dtype (a pass
+            is kept only if it reduced the measured defect: primal + gap,
+            and in the hybrid phase the dual row too)."""
 
-            def defect_norm(dx, dy, dtau, dkappa):
+            def defects(dx, dy, dz, dtau, dkappa):
                 dax = aop.apply(dx)
                 def_p = -r_scale * rp - (dax[:m] - b * dtau)
                 def_g = -r_scale * rg - (dax[m] - b @ dy + dkappa)
-                return def_p, def_g, torch.linalg.norm(def_p) \
-                    + torch.abs(def_g)
+                nrm = torch.linalg.norm(def_p) + torch.abs(def_g)
+                if not hybrid:
+                    return def_p, zero_cv, def_g, nrm
+                # the dual row is exact by construction only in the
+                # compute dtype: A'dy + dz - c dtau + r_scale rd
+                def_d = cv_neg(cv_add(cv_scale(rd, r_scale),
+                                      cv_add(aop.adj_y(dy, -dtau), dz)))
+                return def_p, def_d, def_g, nrm + cv_norm(def_d)
 
-            dx, dy, dz, dtau, dkappa = direction_raw(
-                -r_scale * rp if r_scale else torch.zeros(m, dtype=F64,
-                                                          device=dev),
-                cv_scale(cv_neg(rd), r_scale), -r_scale * rg, rc, r_tk)
+            dx, dy, dz, dtau, dkappa = hi(direction_raw(
+                lo(-r_scale * rp) if r_scale else
+                torch.zeros(m, dtype=cd, device=dev),
+                lo(cv_scale(cv_neg(rd), r_scale)), lo(-r_scale * rg), rc,
+                r_tk))
             for _ in range(defect_correct):
-                def_p, def_g, nrm_old = defect_norm(dx, dy, dtau, dkappa)
-                cx_, cy_, cz_, ct_, ck_ = direction_raw(
-                    def_p, zero_cv, def_g, zero_cv, zero_s)
+                def_p, def_d, def_g, nrm_old = defects(dx, dy, dz, dtau,
+                                                       dkappa)
+                cx_, cy_, cz_, ct_, ck_ = hi(direction_raw(
+                    lo(def_p), lo(def_d), lo(def_g), zero_cv, zero_cd))
                 dx2, dy2, dz2 = cv_add(dx, cx_), dy + cy_, cv_add(dz, cz_)
                 dtau2, dkappa2 = dtau + ct_, dkappa + ck_
-                keep = defect_norm(dx2, dy2, dtau2, dkappa2)[2] < nrm_old
+                keep = defects(dx2, dy2, dz2, dtau2, dkappa2)[3] < nrm_old
 
                 def pick(a2, a):
                     return torch.where(keep, a2, a)
@@ -327,19 +444,20 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
 
         lam2 = nt.lam_sq(S)
         lam_cv = nt.lam_as_conevec(S)
-        vtk = torch.sqrt(tau * kappa)
+        vtk = torch.sqrt(tau_l * kappa_l)
         # centering contribution (zero unless the Sturm path fills it)
-        dxc, dzc = zero_cv, zero_cv
-        dyc = torch.zeros(m, dtype=F64, device=dev)
-        dtauc, dkappac = zero_s, zero_s
+        dxc = dzc = cv_zeros(layout, dev, dtype)
+        dyc = torch.zeros(m, dtype=dtype, device=dev)
+        dtauc = dkappac = zero_hi
         xs_b, zs_b = lam_cv, lam_cv          # scaled-space base points
-        tau_b, kappa_b = tau, kappa
-        delta0, gate, maxt1 = zero_s, False, zero_s
+        tau_b, kappa_b = tau_l, kappa_l
+        delta0, gate, maxt1 = zero_hi, False, zero_hi
 
         if sturm:
             # ---- Sturm wide-region iteration (wregion.m): initial
             # centering -> predictor -> 2nd-order corrector, all with one
-            # NT scaling / factorization ----
+            # NT scaling / factorization (never in the hybrid phase, so
+            # the state and compute dtypes agree here) ----
             w_all = torch.cat(
                 [S.lam_l ** 2]
                 + [jd.q_eig(ql).reshape(-1) ** 2 for ql in S.q_lam]
@@ -430,11 +548,11 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
                      - (1.0 + tT / 4.0) * vt_tk)
             r_tk = vtk * pv_tk
         else:
-            # ---- Mehrotra affine predictor ----
+            # ---- Mehrotra affine predictor (the hybrid phase's path) ----
             dxa, dya, dza, dtaua, dkappaa = direction(cv_neg(lam2),
-                                                      -tau * kappa)
-            dxs_a = nt.scale_x_to_v(S, dxa)
-            dzs_a = nt.scale_z_to_v(S, dza)
+                                                      lo(-tau * kappa))
+            dxs_a = nt.scale_x_to_v(S, lo(dxa))
+            dzs_a = nt.scale_z_to_v(S, lo(dza))
             amax_a = torch.minimum(
                 torch.minimum(nt.maxstep_scaled(S, dxs_a),
                               nt.maxstep_scaled(S, dzs_a)),
@@ -445,26 +563,27 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
                        + a_aff**2 * cv_dot(dxa, dza)
                        + (tau + a_aff * dtaua) * (kappa + a_aff * dkappaa))
             sigma = torch.clamp((gap_aff / (nu + 1.0) / mu) ** 3, 0.0, 1.0)
-            sm_l = sigma * mu
+            sm_l = lo(sigma * mu)
             if pars.alg == 0:
                 rc = cv_sub(cv_scale(e_scaled, sm_l), lam2)
-                r_tk = sm_l - tau * kappa
+                r_tk = sm_l - lo(tau * kappa)
             elif pars.alg == 1:
                 # v-linearized 2nd-order corrector (wregion.m:105-110)
-                t1 = torch.clamp_max(amax_a, 1.0)
+                t1 = lo(torch.clamp_max(amax_a, 1.0))
                 dxmdz = cv_sub(dxs_a, dzs_a)
                 rc = cv_add(
                     cv_scale(cv_jmul(lam_cv, cv_sub(
                         cv_scale(e_scaled, torch.sqrt(sm_l)), lam_cv)), 2.0),
                     cv_scale(cv_jmul(dxmdz, dxmdz), 0.25 * t1**2))
+                vtk_hi = torch.sqrt(tau * kappa)
                 dtk = (dtaua * torch.sqrt(kappa / tau)
                        - dkappaa * torch.sqrt(tau / kappa))
-                r_tk = 2.0 * vtk * (torch.sqrt(sigma * mu) - vtk) \
-                    + 0.25 * t1**2 * dtk**2
+                r_tk = lo(2.0 * vtk_hi * (torch.sqrt(sigma * mu) - vtk_hi)) \
+                    + 0.25 * t1**2 * lo(dtk)**2
             else:
                 rc = cv_sub(cv_sub(cv_scale(e_scaled, sm_l), lam2),
                             cv_jmul(dxs_a, dzs_a))
-                r_tk = sm_l - (tau * kappa + dtaua * dkappaa)
+                r_tk = sm_l - lo(tau * kappa + dtaua * dkappaa)
 
         # --- combined (corrector) direction ------------------------------
         dx, dy, dz, dtau, dkappa = direction(rc, r_tk)
@@ -475,8 +594,8 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
         x_b, z_b = cv_add(x, dxc), cv_add(z, dzc)
         tau_bb, kappa_bb = tau + dtauc, kappa + dkappac
         gap_b = cv_dot(x_b, z_b)
-        dxs = nt.scale_x_to_v(S, dx)
-        dzs = nt.scale_z_to_v(S, dz)
+        dxs = nt.scale_x_to_v(S, lo(dx))
+        dzs = nt.scale_z_to_v(S, lo(dz))
         if sturm:
             ms_x, ms_z = nt.maxstep_pair(xs_b, dxs, zs_b, dzs)
             amax_p = torch.minimum(ms_x, _pos_step(tau_b, dtau))
@@ -487,7 +606,8 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
             amax_d = torch.minimum(nt.maxstep_scaled(S, dzs),
                                    _pos_step(kappa, dkappa))
 
-        # --- Gondzio multiple centrality correctors (pars.mcc) -----------
+        # --- Gondzio multiple centrality correctors (pars.mcc; not in the
+        # hybrid phase, so the two dtypes agree here) ---------------------
         def mcc_round(dx, dy, dz, dtau, dkappa, dxs, dzs, amax_p, amax_d):
             th = torch.clamp_max(1.5 * gamma * torch.minimum(amax_p, amax_d),
                                  1.0)
@@ -524,19 +644,21 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
             return dx, dy, dz, dtau, dkappa, dxs, dzs, amax_p, amax_d
 
         carry = (dx, dy, dz, dtau, dkappa, dxs, dzs, amax_p, amax_d)
-        for _ in range(max(0, int(pars.mcc))):
+        for _ in range(0 if hybrid else max(0, int(pars.mcc))):
             # host gate (ipm.py:907): only short boundary steps get a round
             if bool(torch.minimum(carry[7], carry[8]) < 0.8):
                 carry = mcc_round(*carry)
         dx, dy, dz, dtau, dkappa, dxs, dzs, amax_p, amax_d = carry
-        if pars.mcc:
+        if pars.mcc and not hybrid:
             dax_full = aop.apply(dx)   # refresh for the stepdif model
 
+        amax_p, amax_d = amax_p.to(dtype), amax_d.to(dtype)
         amax = torch.minimum(amax_p, amax_d)
         alpha = torch.clamp_max(gamma * amax, 1.0)
         if use_wr:
             # wide-region acceptance (wregion.m:136-150) with the
-            # gap-elimination step fullt (widelen.m:46-60)
+            # gap-elimination step fullt (widelen.m:46-60); the trial
+            # spectra in the compute dtype
             gap_tot = gap_b + tau_bb * kappa_bb
             dgap = (cv_dot(x_b, dz) + cv_dot(z_b, dx)
                     + tau_bb * dkappa + kappa_bb * dtau)
@@ -547,8 +669,9 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
                     dgap**2 - 4.0 * gap_tot * qneg, 0.0))),
                 2.0 * alpha)
             t_wr, _ = wr.widelen_batched(
-                xs_b, dxs, dzs, tau_b, dtau, kappa_b, dkappa, alpha,
-                pars.theta, pars.beta, zbase=zs_b, fullt=fullt)
+                xs_b, dxs, dzs, tau_b, lo(dtau), kappa_b, lo(dkappa),
+                lo(alpha), pars.theta, pars.beta, zbase=zs_b,
+                fullt=lo(fullt))
             alpha = torch.minimum(alpha, t_wr)
 
         tp = td = alpha
@@ -556,21 +679,30 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
             tp, td = _stepdif(pars, sd_on, use_wr, alpha, amax_p, amax_d,
                               gamma, aop, b, rp, rd, dax_full, dx, dy, dz,
                               dtau, dkappa, x_b, z_b, tau_bb, kappa_bb,
-                              gap_b, xs_b, zs_b, dxs, dzs, m)
+                              gap_b, xs_b, zs_b, dxs, dzs, m, lo)
+        if hybrid:
+            # never step along a direction whose defect stayed catastrophic
+            # (a beyond-conditioning f32 solve): the null step lets the
+            # host's stall logic escalate (reference ipm.py:1108-1116)
+            bad_dir = dir_defect > 50.0
+            tp = torch.where(bad_dir, 0.0, tp)
+            td = torch.where(bad_dir, 0.0, td)
 
-        # --- positivity backtracking in the state dtype (ipm.py:1177) ---
+        # --- positivity backtracking in the state dtype (ipm.py:1177);
+        # the PSD probe in probe_dt ---
         def interior(cv: ConeVec, t_, k_) -> torch.Tensor:
             oks = [t_ > 0, k_ > 0]
             if cv.l.numel():
                 oks.append(torch.all(
-                    cv.l > -4 * _EPS * torch.max(torch.abs(cv.l))))
+                    cv.l > -4 * eps_hi * torch.max(torch.abs(cv.l))))
             for xq in cv.q:
                 oks.append(torch.all(
-                    jd.q_eig(xq)[..., 0] > -4 * _EPS * xq[..., 0]))
+                    jd.q_eig(xq)[..., 0] > -4 * eps_hi * xq[..., 0]))
             for xs in cv.s:
-                mx = torch.amax(torch.abs(torch.diagonal(xs, dim1=-2,
+                x32 = xs.to(probe_dt)
+                mx = torch.amax(torch.abs(torch.diagonal(x32, dim1=-2,
                                                          dim2=-1)), dim=-1)
-                ch = cholesky(nt._add_diag(xs, (4 * _EPS * mx)[..., None]))
+                ch = cholesky(nt._add_diag(x32, (4 * eps_pr * mx)[..., None]))
                 oks.append(torch.all(torch.isfinite(ch)))
             return torch.stack(oks).all()
 
@@ -624,15 +756,15 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
 
 def _stepdif(pars, sd_on, use_wr, alpha, amax_p, amax_d, gamma, aop, b, rp,
              rd, dax_full, dx, dy, dz, dtau, dkappa, x_b, z_b, tau_b,
-             kappa_b, gap_b, xs_b, zs_b, dxs, dzs, m):
+             kappa_b, gap_b, xs_b, zs_b, dxs, dzs, m, lo):
     """Primal/dual step-length differentiation (stepdif.m:39-175 restated
     for the HSD coordinates, with the homogeneous compensation of
-    wregion.m:162-168) and the trydif.m wide-region re-test.  Returns
-    (tp, td)."""
-    dev = alpha.device
+    wregion.m:162-168) and the trydif.m wide-region re-test, whose spectra
+    run in the compute dtype (`lo` casts to it).  Returns (tp, td)."""
+    dev, dt = alpha.device, alpha.dtype
     dAx = dax_full[:m] - b * dtau                                # d/dtp rp
-    u1 = cv_add(aop.adj_y(dy, torch.zeros((), dtype=F64, device=dev)), dz)
-    u2 = aop.adj(torch.cat([torch.zeros(m, dtype=F64, device=dev),
+    u1 = cv_add(aop.adj_y(dy, torch.zeros((), dtype=dt, device=dev)), dz)
+    u2 = aop.adj(torch.cat([torch.zeros(m, dtype=dt, device=dev),
                             dtau.reshape(1)]))                   # c dtau
     rr = rp @ rp
     ra = rp @ dAx
@@ -682,7 +814,7 @@ def _stepdif(pars, sd_on, use_wr, alpha, amax_p, amax_d, gamma, aop, b, rp,
                 + (w1 * torch.sqrt(rp2_aa) + bil + tk_t) / tau_a)
         return torch.where((gap_t <= gap_cap) & (tau_t > 0), mval, inf)
 
-    grid = torch.as_tensor(np.linspace(0.0, 1.0, 33), dtype=F64, device=dev)
+    grid = torch.as_tensor(np.linspace(0.0, 1.0, 33), dtype=dt, device=dev)
 
     def piece_min(fm, t_hi_):
         """1-D min over [alpha, t_hi_]: 33-point scan + parabolic polish."""
@@ -713,10 +845,11 @@ def _stepdif(pars, sd_on, use_wr, alpha, amax_p, amax_d, gamma, aop, b, rp,
         # candidate stays in the wide region (host gate, ipm.py:1097)
         differentiated = bool(clear_win) and (pars.stepdif != 2 or sd_on)
         if differentiated:
-            xs_try = cv_map(lambda a, d_: a + tp * d_, xs_b, dxs)
-            zs_try = cv_map(lambda a, d_: a + td * d_, zs_b, dzs)
+            tp_l, td_l = lo(tp), lo(td)
+            xs_try = cv_map(lambda a, d_: a + tp_l * d_, xs_b, dxs)
+            zs_try = cv_map(lambda a, d_: a + td_l * d_, zs_b, dzs)
             wspec = wr.prod_spectrum(xs_try, zs_try)
-            wtk = (tau_b + tp * dtau) * (kappa_b + td * dkappa)
+            wtk = lo((tau_b + tp * dtau) * (kappa_b + td * dkappa))
             dl = wr.iswnbr(torch.cat([wspec, wtk.reshape(1)]),
                            pars.theta)[0]
             ok_dif = dl <= pars.beta

@@ -35,14 +35,20 @@ _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # source file -> {C launch function: argtypes}
 SOURCES = {
     "dd_residual.cu": {
-        "dd_matvec_residual_launch": [_P, _P, _P, _P, _I, _I, _P]},
+        "dd_matvec_residual_launch": [_P, _P, _P, _P, _I, _I, _P],
+        "dd_matvec_residual_f32_launch": [_P, _P, _P, _P, _I, _I, _P]},
     "psd_coo.cu": {
         "psd_coo_outer_launch": [_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _P],
-        "psd_coo_gather_launch": [_P, _P, _P, _P, _P, _I, _LL, _P]},
+        "psd_coo_gather_launch": [_P, _P, _P, _P, _P, _I, _LL, _P],
+        "psd_coo_outer_f32_launch": [_P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _P],
+        "psd_coo_gather_f32_launch": [_P, _P, _P, _P, _P, _I, _LL, _P]},
     "ldl_masked.cu": {
         "ldl_masked_launch": [_P, _P, _P, _P, _P, _P, _P, _I,
-                              _D, _D, _D, _I, _P]},
+                              _D, _D, _D, _I, _P],
+        "ldl_masked_f32_launch": [_P, _P, _P, _P, _P, _P, _P, _I,
+                                  _D, _D, _D, _I, _P]},
     "dd_split.cu": {
         "ozaki_split_launch": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P]},
     "dd_elem.cu": {
@@ -62,12 +68,18 @@ SOURCES = {
         "tile_fwd_diag_launch": [_P, _P, _P, _P, _I, _I, _P],
         "tile_fwd_scatter_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "tile_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "df_gemv.cu": {
+        "df_matvec_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "df_vecmat_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P]},
 }
 
+# K1-K3 count their f64 and f32 builds apart (the *_f32 names)
 LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "ozaki_split": 0, "dd_accumulate": 0, "dd_gemv": 0,
             "dd_panel_chol": 0, "tile_factor": 0, "tile_update": 0,
-            "tile_solve": 0}
+            "tile_solve": 0, "dd_matvec_residual_f32": 0,
+            "psd_contrib_coo_f32": 0, "ldl_masked_f32": 0, "df_matvec": 0,
+            "df_vecmat": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -11,6 +11,10 @@ Counterpart of the reference's nt.py (reference analog: updtransfo.m):
   Buckets of real-embedded complex-Hermitian blocks run the chain natively
   in complex arithmetic at half the order, then re-embed R, Rinv and the
   doubled spectrum (the reference's CPU path, nt.py:112-134).
+
+Every eps-relative guard takes its eps and tiny from the operands' dtype
+(f64, or f32 and complex64 in the precision ladder's f32 phases), as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -23,8 +27,11 @@ from . import jordan as jd
 from .linalg_ops import cholesky, eigh_multi, eigvalsh_multi
 from .structs import ConeVec
 
-_EPS = float(torch.finfo(torch.float64).eps)
-_TINY = float(torch.finfo(torch.float64).tiny)
+
+
+def _cv_dtype(cv: ConeVec) -> torch.dtype:
+    return cv.l.dtype if cv.l.numel() else (
+        cv.s[0].dtype if cv.s else cv.q[0].dtype)
 
 
 class Scaling(NamedTuple):
@@ -50,16 +57,17 @@ def _add_diag(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def _guarded_chol(a: torch.Tensor, eps: float) -> torch.Tensor:
     """Cholesky of a + 4 eps max|diag(a)| I (the reference's eps-relative
-    shift that keeps endgame factorizations total)."""
+    shift that keeps endgame factorizations total; eps of a's precision)."""
     mx = torch.amax(torch.abs(torch.diagonal(a, dim1=-2, dim2=-1).real),
                     dim=-1)
     return cholesky(_add_diag(a, (4 * eps * mx)[..., None]))
 
 
 def _sig_floor(sig2: torch.Tensor) -> torch.Tensor:
+    fi = torch.finfo(sig2.dtype)
     return torch.maximum(
-        sig2, (4 * _EPS) ** 2 * torch.amax(sig2, dim=-1, keepdim=True)
-        + _TINY)
+        sig2, (4 * fi.eps) ** 2 * torch.amax(sig2, dim=-1, keepdim=True)
+        + fi.tiny)
 
 
 def _to_c(e: torch.Tensor) -> torch.Tensor:
@@ -81,7 +89,7 @@ def compute_scaling(x: ConeVec, z: ConeVec,
                     herm: tuple[bool, ...] | None = None) -> Scaling:
     """NT scaling, total on numerically interior points (every
     factorization carries an eps-relative clamp/shift)."""
-    eps = _EPS
+    eps = torch.finfo(_cv_dtype(x)).eps
 
     def _posl(v):
         if not v.numel():
@@ -225,7 +233,7 @@ def _maxstep_psd_probes(base: ConeVec, dv: ConeVec):
     """Per-bucket probe matrices Lc^{-1} dv Lc^{-T} (maxstep.m:62-66)."""
     out = []
     for bs, ds in zip(base.s, dv.s):
-        lc = _guarded_chol(bs, _EPS)
+        lc = _guarded_chol(bs, torch.finfo(bs.dtype).eps)
         t1 = torch.linalg.solve_triangular(lc, ds, upper=False)
         m = torch.linalg.solve_triangular(lc, t1.transpose(-1, -2),
                                           upper=False)
@@ -238,23 +246,24 @@ def _psd_steps(m_list):
     for lmin_all in (eigvalsh_multi(m_list) if m_list else []):
         lmin = torch.amin(lmin_all, dim=-1)
         big = torch.full_like(lmin, float("inf"))
-        st = torch.where(lmin < 0, -1.0 / torch.clamp_max(lmin, -_TINY), big)
+        tiny = torch.finfo(lmin.dtype).tiny
+        st = torch.where(lmin < 0, -1.0 / torch.clamp_max(lmin, -tiny), big)
         out.append(torch.min(st) if st.numel() else
                    torch.full((), float("inf"), dtype=st.dtype,
                               device=st.device))
     return out
 
 
-def _inf(device) -> torch.Tensor:
-    return torch.full((), float("inf"), dtype=torch.float64, device=device)
+def _inf(like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), float("inf"), dtype=like.dtype, device=like.device)
 
 
 def _q_steps(bx: ConeVec, dvx: ConeVec):
     return [torch.min(jd.q_maxstep(bq, dq)) for bq, dq in zip(bx.q, dvx.q)]
 
 
-def _min_all(steps, device) -> torch.Tensor:
-    return torch.min(torch.stack(steps)) if steps else _inf(device)
+def _min_all(steps, like: torch.Tensor) -> torch.Tensor:
+    return torch.min(torch.stack(steps)) if steps else _inf(like)
 
 
 def maxstep_pair(bx: ConeVec, dvx: ConeVec, bz: ConeVec, dvz: ConeVec):
@@ -268,8 +277,7 @@ def maxstep_pair(bx: ConeVec, dvx: ConeVec, bz: ConeVec, dvz: ConeVec):
         + both[:len(mx)]
     steps_z = [jd.l_maxstep(bz.l, dvz.l)] + _q_steps(bz, dvz) \
         + both[len(mx):]
-    dev = bx.l.device
-    return _min_all(steps_x, dev), _min_all(steps_z, dev)
+    return _min_all(steps_x, bx.l), _min_all(steps_z, bx.l)
 
 
 def maxstep_scaled(S: Scaling, dv: ConeVec) -> torch.Tensor:
@@ -282,4 +290,4 @@ def maxstep_scaled(S: Scaling, dv: ConeVec) -> torch.Tensor:
         isq = 1.0 / torch.sqrt(sig)
         m_list.append(ds * isq[..., :, None] * isq[..., None, :])
     steps += _psd_steps(m_list)
-    return _min_all(steps, S.lam_l.device)
+    return _min_all(steps, S.lam_l)

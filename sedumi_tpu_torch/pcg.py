@@ -3,11 +3,13 @@
 Counterpart of the reference's pcg.py (reference analog: wrapPcg.m,
 loopPcg.m, quadadd.c).  The residual r = rhs - M v is evaluated with
 error-free transformations, which pushes the refinement floor from
-cond(M) eps down by another ~2^27.
+cond(M) eps down by another ~2^27 (f64) or ~2^12 (f32).  Everything
+here works in the dtype of its inputs, f64 or f32, with that dtype's
+Veltkamp constant (fp.split_const).
 
 :func:`dd_matvec_residual` is kernel K1: on a CUDA tensor it launches the
-hand-written kernel csrc/dd_residual.cu (and raises if it cannot); on a
-CPU tensor it runs :func:`dd_matvec_residual_plain`.
+hand-written kernel csrc/dd_residual.cu (its f64 or f32 build, and raises
+if it cannot); on a CPU tensor it runs :func:`dd_matvec_residual_plain`.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def two_sum(a, b):
 
 
 def _split(a):
-    c = split_const() * a
+    c = split_const(a.dtype) * a
     hi = c - (c - a)
     return hi, a - hi
 
@@ -46,7 +48,8 @@ def two_prod(a, b):
 
 def dd_matvec_residual_plain(M: torch.Tensor, v: torch.Tensor,
                              rhs: torch.Tensor) -> torch.Tensor:
-    """rhs - M v in compensated arithmetic, rounded to f64 (plain PyTorch).
+    """rhs - M v in compensated arithmetic, rounded to M's dtype (plain
+    PyTorch).
 
     Every product M_ij v_j is split exactly (TwoProd); the row sums of the
     high parts run as a pairwise TwoSum tree whose errors, with the low
@@ -69,20 +72,23 @@ def dd_matvec_residual_plain(M: torch.Tensor, v: torch.Tensor,
 
 def dd_matvec_residual(M: torch.Tensor, v: torch.Tensor,
                        rhs: torch.Tensor) -> torch.Tensor:
-    """rhs - M v in compensated arithmetic (kernel K1 on the card)."""
+    """rhs - M v in compensated arithmetic (kernel K1 on the card: its
+    f64 build, or K1-f32 for f32 operands)."""
     if not M.is_cuda:
         return dd_matvec_residual_plain(M, v, rhs)
     M, v, rhs = M.contiguous(), v.contiguous(), rhs.contiguous()
-    kernels.check_cuda(M, v, rhs, dtype=torch.float64)
+    f32 = M.dtype == torch.float32
+    kernels.check_cuda(M, v, rhs, dtype=torch.float32 if f32
+                       else torch.float64)
     m, n = M.shape
     if v.shape != (n,) or rhs.shape != (m,):
         raise ValueError(f"shapes M {tuple(M.shape)}, v {tuple(v.shape)}, "
                          f"rhs {tuple(rhs.shape)} do not match")
-    out = torch.empty(m, dtype=torch.float64, device=M.device)
-    kernels.launch("dd_residual.cu", "dd_matvec_residual_launch",
-                   M.data_ptr(), v.data_ptr(), rhs.data_ptr(),
-                   out.data_ptr(), m, n)
-    kernels.LAUNCHES["dd_matvec_residual"] += 1
+    out = torch.empty(m, dtype=M.dtype, device=M.device)
+    name = "dd_matvec_residual_f32" if f32 else "dd_matvec_residual"
+    kernels.launch("dd_residual.cu", name + "_launch", M.data_ptr(),
+                   v.data_ptr(), rhs.data_ptr(), out.data_ptr(), m, n)
+    kernels.LAUNCHES[name] += 1
     return out
 
 

@@ -8,7 +8,8 @@ spscale.c).  Per cone family:
   PSD, 'dense' bucket:  B[m,k] = R_k' A[m,k] R_k;  M += B B' (library bmm)
   PSD, 'coo' bucket:    kernel K2, _psd_contrib_coo
 
-K2's first half, psd_outer, also builds the sparse engine's per-group
+Everything runs in the operator's dtype: f64, or f32 in the precision
+ladder's f32 and hybrid phases (K2-f32 on the card).  K2's first half, psd_outer, also builds the sparse engine's per-group
 B~ (sparse_engine.TileSchurEngine).
 
 The augmented row m carries c, so M holds ADA, A H c and c' H c.
@@ -90,17 +91,21 @@ def psd_outer_plain(W: torch.Tensor, g_blk: torch.Tensor, gp: torch.Tensor,
 def _psd_outer_kernel(W: torch.Tensor, g_blk: torch.Tensor, gp: torch.Tensor,
                       gq: torch.Tensor, gv: torch.Tensor, g_slot: torch.Tensor,
                       nout: int) -> torch.Tensor:
-    """The same function on the card: csrc/psd_coo.cu (a)."""
+    """The same function on the card: csrc/psd_coo.cu (a), f64 or f32."""
     W = W.contiguous()
-    kernels.check_cuda(W, gv, dtype=torch.float64)
+    if W.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"psd_outer takes f32 or f64, got {W.dtype}")
+    kernels.check_cuda(W, gv, dtype=W.dtype)
     kernels.check_cuda(g_blk, gp, gq, g_slot, dtype=torch.int64)
     G, pad2 = gp.shape
     d = W.shape[-1]
     btf = torch.zeros(nout, d, d, dtype=W.dtype, device=W.device)
-    kernels.launch("psd_coo.cu", "psd_coo_outer_launch", W.data_ptr(),
-                   g_slot.data_ptr(), g_blk.data_ptr(), gp.data_ptr(),
-                   gq.data_ptr(), gv.data_ptr(), btf.data_ptr(), G, pad2, d)
-    kernels.LAUNCHES["psd_contrib_coo"] += 1
+    suffix = "_f32" if W.dtype == torch.float32 else ""   # K2-f32
+    kernels.launch("psd_coo.cu", f"psd_coo_outer{suffix}_launch",
+                   W.data_ptr(), g_slot.data_ptr(), g_blk.data_ptr(),
+                   gp.data_ptr(), gq.data_ptr(), gv.data_ptr(),
+                   btf.data_ptr(), G, pad2, d)
+    kernels.LAUNCHES["psd_contrib_coo" + suffix] += 1
     return btf
 
 
@@ -131,12 +136,14 @@ def _psd_contrib_coo_kernel(part: dict, k: int, d: int, G: int, pad2: int,
                             mp1: int, W: torch.Tensor) -> torch.Tensor:
     """The same function on the card: csrc/psd_coo.cu (a) builds B~ group
     by group, (b) gathers M row by row."""
-    kernels.check_cuda(part["b_val"], dtype=torch.float64)
+    kernels.check_cuda(part["b_val"], dtype=W.dtype)
     kernels.check_cuda(part["b_rowptr"], part["b_loc"], dtype=torch.int64)
     btf = _psd_outer_kernel(W, part["g_blk"], part["gp"], part["gq"],
                             part["gv"], part["g_slot"], mp1 * k)
     M = torch.empty(mp1, mp1, dtype=W.dtype, device=W.device)
-    kernels.launch("psd_coo.cu", "psd_coo_gather_launch", btf.data_ptr(),
+    suffix = "_f32" if W.dtype == torch.float32 else ""
+    kernels.launch("psd_coo.cu", f"psd_coo_gather{suffix}_launch",
+                   btf.data_ptr(),
                    part["b_rowptr"].data_ptr(), part["b_loc"].data_ptr(),
                    part["b_val"].data_ptr(), M.data_ptr(), mp1, k * d * d)
     return M

@@ -1,19 +1,32 @@
-"""Host loop: transform -> IPM iterations -> grading -> info (f64).
+"""Host loop: transform -> IPM iterations -> grading -> info.
 
-Counterpart of the reference's solver.py (reference analog: sedumi.m),
-cut to the path this card runs: the f64 precision mode, and the
-reference's phase ladder cut to [f64] or [f64, dd64].  route_engine picks
-the linear-system engine as the reference does: the sparse tile engine
-(sparse_engine.TileSchurEngine) for pars.sparse=1, or at m >= 800 when
-ADA is sparse; the dense Schur engine otherwise.  dd64
-(ddengine.DdSchurEngine, on the same device) is admitted with the dense
-engine only, by the reference's gate, m <= 1200 and a dd formation cost
-below 2.5e11, and entered on a rejected direction, an endgame plateau or
-a stall of the f64 phase.  Control scalars live on the host; each
-iteration is one ipm.make_step call on the device.  Routes this port does
-not cover raise NotImplementedError naming the ROADMAP item instead of
-falling back: a device mesh (pars.mesh_shape), the mixed/f32 precision
-modes, and the profiling/debug options.
+Counterpart of the reference's solver.py (reference analog: sedumi.m).
+route_engine picks the linear-system engine as the reference does: the
+sparse tile engine (sparse_engine.TileSchurEngine) for pars.sparse=1, or
+at m >= 800 when ADA is sparse; the dense Schur engine otherwise.
+
+The precision phases (reference solver.py:399-468, 642-791), all on the
+caller's device:
+
+* 'auto'/'float64' (fp.precision_mode 'f64'): [f64], or [f64, dd64];
+* 'mixed': [f32, hybrid, host64] (+ dd64): f32 iterations while they
+  progress, the hybrid phase (f64 state and residuals over f32 linear
+  algebra; the double-float operator df.DfAOp gives its residuals when A
+  is denser than 10%), then host64, which on this card is an f64 phase on
+  the same device, entered recentered (the reference's CPU-backend
+  branch);
+* 'float32': [f32].
+
+dd64 (ddengine.DdSchurEngine) is admitted with the dense engine only, by
+the reference's gate (m <= 1200, dd formation cost below 2.5e11) and not
+in 'float32'.  A phase is left on a rejected direction, a stall, a
+plateau, or the f32 phase's own probe and floor rules; the ladder's
+escalation can skip the hybrid rung and discard a junk f32 trajectory.
+Control scalars live on the host; each iteration is one ipm.make_step
+call on the device.  Routes this port does not cover raise
+NotImplementedError naming the ROADMAP item instead of falling back: a
+device mesh (pars.mesh_shape), the mixed/f32 modes on the sparse engine,
+and the profiling/debug options.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ import torch
 from . import fp, ipm
 from .cones import ConeSpec, Layout
 from .ddengine import DdSchurEngine
+from .df import build_df_aop
 from .opA import build_coo_aop
 from .params import Pars
 from .sparse_engine import TileSchurEngine, make_sparse_lq_op, \
@@ -139,10 +153,8 @@ def _check_routes(pars: Pars) -> None:
             "pars.profile / pars.debug are not ported yet (ROADMAP queue A "
             "item 11)")
     fp.precision_mode(pars.dtype)
-    if pars.schur_dtype not in (None, "float64", "f64"):
-        raise NotImplementedError(
-            f"pars.schur_dtype={pars.schur_dtype!r}: low-precision Schur "
-            "factors belong to the precision ladder (ROADMAP queue A item 9)")
+    if pars.schur_dtype:
+        fp.torch_dtype(pars.schur_dtype)
 
 
 def _clique_bound_dense(At, layout: Layout) -> bool:
@@ -200,19 +212,38 @@ def dd64_admitted(layout: Layout, m: int) -> bool:
     return m <= 1200 and dd_form_cost(layout, m) < 2.5e11
 
 
-def phase_ladder(engine_kind: str, layout: Layout, m: int) -> list[str]:
-    """The phases a solve may take: dd64 follows f64 with the dense engine
-    only (reference solver.py:642) and when dd64_admitted."""
-    if engine_kind == "dense" and dd64_admitted(layout, m):
-        return ["f64", "dd64"]
-    return ["f64"]
+def phase_ladder(engine_kind: str, layout: Layout, m: int,
+                 mode: str = "f64") -> list[str]:
+    """The phases a solve may take in precision `mode` (reference
+    solver.py:438-467, 642-646): [f64], [f32] or [f32, hybrid, host64],
+    with dd64 last when the dense engine is used, dd64_admitted holds and
+    the mode is not 'f32'.  (The reference's host64 and dd64 need an f64
+    device, which the card always is.)"""
+    order = {"f64": ["f64"], "f32": ["f32"],
+             "mixed": ["f32", "hybrid", "host64"]}[mode]
+    if engine_kind == "dense" and dd64_admitted(layout, m) and mode != "f32":
+        order = order + ["dd64"]
+    return order
 
 
 def solve_internal(At, b, c, layout: Layout, pars: Pars,
                    device="cuda") -> InternalResult:
     """Run the homogeneous self-dual IPM on a problem in internal form.
 
-    At: (N x m) scipy sparse internal data; b: (m,); c: (N,)."""
+    At: (N x m) scipy sparse internal data; b: (m,); c: (N,).  f32 matrix
+    products run at full f32 precision, never TF32 (the reference sets
+    matmul precision 'highest', sedumi_tpu/__init__.py): the setting is
+    held for the solve and restored after it."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return _solve_internal(At, b, c, layout, pars, device)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _solve_internal(At, b, c, layout: Layout, pars: Pars,
+                    device) -> InternalResult:
     import scipy.sparse as sp
 
     m = At.shape[1]
@@ -239,24 +270,65 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
     cscale = 1.0 + normc
     c_s = c / cscale
     engine_kind, sp_plan = route_engine(At, c_s, layout, pars)
+    mode = fp.precision_mode(pars.dtype)
     if engine_kind == "sparse":
+        if mode != "f64":
+            raise NotImplementedError(
+                f"pars.dtype={pars.dtype!r} on the sparse engine: the f32 "
+                "builds of the tile kernels K8-K10 are not ported yet "
+                "(ROADMAP queue A item 9b)")
         sp_meta = sp_plan[1]
         _log(pars, f"sparse Schur path: ADA nnz {sp_meta['ada_nnz']} "
                    f"(density {sp_meta['ada_density']:.3f}), "
                    f"{sp_meta['Kd']} dense column(s)")
-        aop = make_sparse_lq_op(*sp_plan, device=device)
-        engine = TileSchurEngine(pars)
+    F32, F64 = torch.float32, torch.float64
+    dt_hi = F32 if mode == "f32" else F64     # the state's dtype
+    ops = {}
+
+    def _op(dtype):
+        """The operator in `dtype`, built once per dtype."""
+        if dtype not in ops:
+            ops[dtype] = make_sparse_lq_op(*sp_plan, device=device) \
+                if engine_kind == "sparse" else \
+                build_coo_aop(At, c_s, layout, device=device, dtype=dtype)
+        return ops[dtype]
+
+    def _bundle(sdt, aop, engine=None, compute_dtype=None, aop_lo=None,
+                recenter=False):
+        """One precision phase: its step, operators and data (reference
+        solver.py:399-468)."""
+        if engine_kind == "sparse":
+            engine = TileSchurEngine(pars)
+        return dict(
+            step=ipm.make_step(layout, pars, normb, normc, cscale,
+                               dtype=sdt, engine=engine,
+                               compute_dtype=compute_dtype,
+                               err_dens=(den_p, den_d)),
+            aop=aop, aop_lo=aop_lo,
+            b=torch.as_tensor(b, dtype=sdt, device=device),
+            rs=torch.as_tensor(rowscale, dtype=sdt, device=device),
+            sdt=sdt, recenter=recenter)
+
+    phase_order = phase_ladder(engine_kind, layout, m, mode)
+    bundles: dict[str, dict] = {}
+    if mode == "mixed":
+        # the hybrid phase's f64-quality operator: the double-float DfAOp
+        # when A itself is denser than 10% (the bucketed hi/lo pairs cost
+        # O(m N)), the f64 COO operator otherwise (reference
+        # solver.py:410-422)
+        a_density = At.nnz / max(1, At.shape[0] * At.shape[1])
+        aop64d = build_df_aop(At, c_s, layout, device=device) \
+            if engine_kind == "dense" and a_density > 0.1 else _op(F64)
+        bundles["f32"] = _bundle(F32, _op(F32))
+        bundles["hybrid"] = _bundle(F64, aop64d, compute_dtype=F32,
+                                    aop_lo=_op(F32))
     else:
-        aop = build_coo_aop(At, c_s, layout, device=device)
-        engine = None
-    step = ipm.make_step(layout, pars, normb, normc, cscale, engine=engine,
-                         err_dens=(den_p, den_d))
-    b_t = torch.as_tensor(b, dtype=torch.float64, device=device)
-    rs_t = torch.as_tensor(rowscale, dtype=torch.float64, device=device)
+        bundles[phase_order[0]] = _bundle(dt_hi, _op(dt_hi))
+    cur = phase_order[0]
     normb_s = float(np.max(np.abs(b))) if m else 0.0
     normc_s = float(np.max(np.abs(c_s))) if c.size else 0.0
-    state = ipm.init_state(layout, aop, b, normb_s, normc_s, pars,
-                           device=device)
+    state = ipm.init_state(layout, bundles[cur]["aop"], b, normb_s, normc_s,
+                           pars, device=device, dtype=dt_hi)
     # --- two-sided residual-balanced start (reference solver.py:472-512):
     # scale x by d0 and z by 1/d0, d0 minimizing max(err_p0, err_d0) ---
     if m > 0:
@@ -289,10 +361,11 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
             x0f = None
         if x0f is not None:
             gap0 = float(np.dot(x0f, to_flat(layout, state.z)))
+            np_hi = np.float32 if dt_hi == F32 else np.float64
             state = state._replace(
-                x=from_flat(layout, x0f, device),
+                x=from_flat(layout, x0f.astype(np_hi), device, dtype=dt_hi),
                 kappa=torch.tensor(max(gap0 / max(layout.nu, 1), 1e-8),
-                                   dtype=torch.float64, device=device))
+                                   dtype=dt_hi, device=device))
             _log(pars, "projected primal start: ||Ax0 - b tau0|| ~ 0")
 
     def _measure_resid_inf(st) -> tuple:
@@ -347,50 +420,69 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
 
         if os.path.exists(pars.checkpoint_path):
             state, it0 = _load_checkpoint(pars.checkpoint_path, layout,
-                                          device)
+                                          device, dt_hi)
             _log(pars, f"resumed from {pars.checkpoint_path} at iter {it0}")
     # tracked stopping residuals (sedumi.m:545-566), seeded after resume
     rw_p, rw_d = _measure_resid_inf(state)
 
-    # --- the phase ladder; the dd64 step is built at the first
-    # escalation ---
-    phase_order = phase_ladder(engine_kind, layout, m)
-    steps = {"f64": step}
-    cur = "f64"
-    recenter = ipm.make_recenter(layout)
+    # --- the phase ladder; host64 and dd64 are built at their first
+    # escalation.  dd64_possible is the reference's gate (its f64-device
+    # and mesh terms hold here), which the f32 floor rule reads even where
+    # the ladder has no dd64 ---
+    dd64_possible = engine_kind == "dense" and dd64_admitted(layout, m)
+    recenter_hi = ipm.make_recenter(layout, dt_hi)
+    recenter_lo = ipm.make_recenter(layout, F32)
 
-    def _escalate(why: str, discard_progress: bool = False) -> bool:
+    def _escalate(why: str, skip_hybrid: bool = False,
+                  discard_progress: bool = False) -> bool:
         """Move to the next phase; False at the ladder top (reference
-        solver.py:708-791, cut to [f64, dd64]).  The iterate is recentered
-        into the cone interior and the tracked residuals re-synced to
-        measured values.  discard_progress: the f64 phase failed before
-        any real progress, so its iterates are junk; restart from the
-        initial point and forget the best-iterate records.  (The
-        reference's phase_iters and since_best_phase drive only its f32
-        and hybrid rungs, which the port does not have.)"""
-        nonlocal cur, state, since_best, stall, best_worst, best_state, \
-            best_rec, best_tr_score, best_tr_state, best_tr_rec, rw_p, rw_d
+        solver.py:708-791).  The iterate is cast to the state dtype,
+        recentered in f32 when entering the hybrid phase and in f64 when
+        entering host64 or dd64, and the tracked residuals re-synced to
+        measured values.  skip_hybrid: the hybrid phase shares the f32
+        formation that just failed, so jump past it.  discard_progress: the
+        leaving phase's iterates are junk (bad arithmetic from its first
+        steps); restart from the initial point and forget the best-iterate
+        records."""
+        nonlocal cur, state, phase_iters, since_best, since_best_phase, \
+            stall, best_worst, best_state, best_rec, best_tr_score, \
+            best_tr_state, best_tr_rec, rw_p, rw_d
         if discard_progress:
-            state = state0
+            state = ipm.cast_state(state0, dt_hi)
             best_tr_score, best_tr_state, best_tr_rec = np.inf, None, None
             best_worst, best_state, best_rec = np.inf, state, None
             _log(pars, "  discarding the unusable phase's iterates; "
                        "restarting from the initial point")
         idx = phase_order.index(cur) + 1
+        if skip_hybrid and idx < len(phase_order) \
+                and phase_order[idx] == "hybrid":
+            idx += 1
         if idx >= len(phase_order):
             return False
         nxt = phase_order[idx]
-        if nxt not in steps:
-            steps[nxt] = ipm.make_step(layout, pars, normb, normc, cscale,
-                                       engine=DdSchurEngine(),
-                                       err_dens=(den_p, den_d))
-        state = recenter(state)
+        if nxt not in bundles:     # host64 or dd64: f64 on this device
+            bundles[nxt] = _bundle(
+                F64, _op(F64), recenter=True,
+                engine=DdSchurEngine() if nxt == "dd64" else None)
+        s = ipm.cast_state(state, dt_hi)
+        if nxt == "hybrid":
+            # an off-center f32 iterate would leave every widelen trial
+            # outside the wide region: recenter it in f32 first
+            s = ipm.cast_state(recenter_lo(ipm.cast_state(s, F32)), dt_hi)
+        state = recenter_hi(s) if bundles[nxt]["recenter"] else s
         _log(pars, f"  escalating {cur} -> {nxt} ({why})")
         rw_p, rw_d = _measure_resid_inf(state)
         cur = nxt
-        since_best = 0
-        stall = 0
+        # fresh phase, fresh stall budgets
+        phase_iters = since_best = since_best_phase = stall = 0
         return True
+
+    # f32 stalls once `worst` nears its rounding floor; escalate a bit
+    # before that (reference solver.py:793-797)
+    switch_tol = 3e-4
+    since_best_phase = 0
+    phase_iters = 0
+    mu_phase0 = np.inf
 
     reg = 0.0
     iterlog: list[dict] = []
@@ -417,8 +509,12 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
         t_it0 = time.time()
         tried = 0
         while True:
-            new_state, st = steps[cur](aop, b_t, rs_t, state, reg,
-                                       sd_on=sd_on)
+            bd = bundles[cur]
+            st_in = ipm.cast_state(state, bd["sdt"]) \
+                if bd["sdt"] != dt_hi else state
+            new_state, st = bd["step"](bd["aop"], bd["b"], bd["rs"], st_in,
+                                       reg, sd_on=sd_on,
+                                       aop_lo=bd["aop_lo"])
             rec = st.to_host()
             finite = np.isfinite(rec["mu"]) and bool(rec["chol_ok"]) \
                 and np.isfinite(rec["alpha"])
@@ -426,7 +522,9 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
                              & torch.isfinite(new_state.kappa))
             # reject steps whose direction the solves corrupted (exact
             # Newton satisfies the primal row to roundoff); escalation
-            # re-runs the same state one phase up
+            # re-runs the same state one phase up.  (The reference also
+            # treats hybrid as last when host64 is impossible; here host64
+            # always is.)
             last_phase = cur == phase_order[-1]
             quality_ok = last_phase or rec["dir_defect"] < 0.1
             if finite and leaves_ok and quality_ok:
@@ -443,8 +541,12 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
             mu0_run = iterlog[0]["mu"] if iterlog else float("inf")
             discard = (cur == phase_order[0] and it <= 20
                        and rec["mu"] > 1e-3 * mu0_run)
-            if not last_phase and _escalate(f"{why} in {cur}",
-                                            discard_progress=discard):
+            # a discard also skips the hybrid rung, which shares the f32
+            # formation (reference solver.py:864-875)
+            if not last_phase and _escalate(
+                    f"{why} in {cur}",
+                    skip_hybrid=not (finite and leaves_ok) or discard,
+                    discard_progress=discard):
                 continue
             tried += 1
             reg = max(reg * 100.0, 1e-14)
@@ -456,7 +558,8 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
         # `st` measures the PRE-step state: keep it for the best-iterate
         # bookkeeping
         prev_state = state
-        state = new_state
+        state = ipm.cast_state(new_state, dt_hi) \
+            if bundles[cur]["sdt"] != dt_hi else new_state
         rec["phase"] = cur
         rec["wall_s"] = round(time.time() - t_it0, 4)
         iterlog.append(rec)
@@ -496,9 +599,9 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
                     xe = None
             if xe is not None:
                 state = state._replace(
-                    x=from_flat(layout, xe * tau_now, device),
+                    x=from_flat(layout, xe * tau_now, device, dtype=dt_hi),
                     y=torch.as_tensor(ye * tau_now / (rowscale * cscale),
-                                      dtype=torch.float64, device=device))
+                                      dtype=dt_hi, device=device))
                 best_state = state
                 best_rec = dict(rec)
                 stop = 1
@@ -510,6 +613,38 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
             # adaptive differentiation trigger: certificate runs only
             sd_on = True
         worst = max(rec["err_p"], rec["err_d"], rec["gap_rel"])
+        phase_iters += 1
+        if phase_iters == 1:
+            mu_phase0 = rec["mu"]
+        # f32 probe (reference solver.py:977-990): a healthy f32 phase
+        # contracts mu by ~2-4x per iteration; one that has not contracted
+        # it 2.5x in 4 iterations never recovers: discard and restart a
+        # phase up, past the hybrid rung
+        if (cur == "f32" and phase_iters == 5 and mu_phase0 > 1e-4
+                and rec["mu"] > 0.4 * mu_phase0):
+            if _escalate(f"f32 mu-probe: {mu_phase0:.1e} -> "
+                         f"{rec['mu']:.1e} in 4 iters",
+                         skip_hybrid=True, discard_progress=True):
+                continue
+        if cur == "f32":
+            # leave f32 near its rounding floor or once it stops making
+            # >= 2% relative progress (reference solver.py:991-1026); a
+            # far-from-converged f32 iterate (worst > 1e-2) skips the
+            # hybrid polisher, and is discarded when dd64 is admitted
+            improved = worst < best_worst * (1.0 - 0.02)
+            since_best_phase = 0 if improved else since_best_phase + 1
+            if worst <= switch_tol or since_best_phase >= 3 or (
+                    rec["alpha"] < 2e-3 and it > 3) or phase_iters >= 60:
+                if _escalate(f"f32 floor at iter {it}, worst={worst:.1e}",
+                             skip_hybrid=worst > 1e-2,
+                             discard_progress=(worst > 1e-2
+                                               and dd64_possible)):
+                    since_best = 0
+        elif cur == "hybrid" and (since_best >= 4 or phase_iters >= 40) \
+                and best_worst > pars.eps:
+            # the hybrid phase stalled above target: one chance in f64
+            if _escalate(f"hybrid plateau at worst={best_worst:.1e}"):
+                since_best = 0
         if pars.vplot:
             # v-plot data (sedumi.m:414,521,752-765)
             from .wregion import prod_spectrum
@@ -571,12 +706,13 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
             _log(pars, f"  tracked-residual stop: precision1={prec1:.1e} "
                        f"precision2={prec2:.1e} (sedumi.m:554-560)")
             break
-        # -- plateau: solves at their accuracy floor.  Patience 18 in f64,
-        # 8 in dd64, whose non-improving tail is the wander region.  The
-        # terminal refinement is tried first (it may make dd64
-        # unnecessary), then the best iterate goes one rung up --
+        # -- plateau: solves at their accuracy floor (not in f32, whose
+        # own rules above escalate).  Patience 18 in f64, 8 in dd64, whose
+        # non-improving tail is the wander region.  The terminal
+        # refinement is tried first (it may make dd64 unnecessary), then
+        # the best iterate goes one rung up --
         patience = 8 if cur == "dd64" else 18
-        if since_best >= patience and best_worst < 1e-5:
+        if cur != "f32" and since_best >= patience and best_worst < 1e-5:
             if best_worst <= pars.eps:
                 stop = 1
                 break
@@ -593,7 +729,7 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
                     continue
             stop = -1
             break
-        if since_best >= 30:     # hard plateau
+        if cur != "f32" and since_best >= 30:     # hard plateau
             if cur != phase_order[-1]:
                 state = best_state
                 if _escalate("hard plateau"):
@@ -606,7 +742,7 @@ def solve_internal(At, b, c, layout: Layout, pars: Pars,
         ):
             stop = 2
             break
-        # -- stall: no step progress (sedumi.m:497-506); the f64 phase
+        # -- stall: no step progress (sedumi.m:497-506); a non-final phase
         # escalates instead of giving up --
         stall = stall + 1 if (rec["alpha"] < 1e-5 and it > 5) else 0
         if stall >= 3 and not _escalate(f"stalled (alpha<1e-5 x{stall})"):
@@ -653,16 +789,15 @@ def _save_checkpoint(path: str, layout: Layout, state, it: int) -> None:
              kappa=float(state.kappa), it=it)
 
 
-def _load_checkpoint(path: str, layout: Layout, device):
+def _load_checkpoint(path: str, layout: Layout, device,
+                     dtype=torch.float64):
     d = np.load(path)
     state = ipm.IPMState(
-        x=from_flat(layout, d["x"], device),
-        y=torch.as_tensor(d["y"], dtype=torch.float64, device=device),
-        z=from_flat(layout, d["z"], device),
-        tau=torch.tensor(float(d["tau"]), dtype=torch.float64,
-                         device=device),
-        kappa=torch.tensor(float(d["kappa"]), dtype=torch.float64,
-                           device=device),
+        x=from_flat(layout, d["x"], device, dtype=dtype),
+        y=torch.as_tensor(d["y"], dtype=dtype, device=device),
+        z=from_flat(layout, d["z"], device, dtype=dtype),
+        tau=torch.tensor(float(d["tau"]), dtype=dtype, device=device),
+        kappa=torch.tensor(float(d["kappa"]), dtype=dtype, device=device),
     )
     return state, int(d["it"])
 

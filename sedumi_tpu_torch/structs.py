@@ -3,7 +3,8 @@
 An element of K = R+^l x Q^q1..qk x S+^s1..sr is a :class:`ConeVec`: one
 [nl] tensor for the LP part, one [count, dim] tensor per Lorentz bucket and
 one [count, dim, dim] tensor per PSD bucket (the bucket layout of
-cones.Layout).  All tensors are float64 on one device.
+cones.Layout).  All tensors share one device and one dtype: float64, or
+float32 in the precision ladder's f32 phase.
 """
 
 from __future__ import annotations
@@ -40,28 +41,41 @@ def cv_leaves(a: ConeVec) -> list[torch.Tensor]:
     return [a.l, *a.q, *a.s]
 
 
-def cv_zeros(layout: Layout, device) -> ConeVec:
+def cv_zeros(layout: Layout, device, dtype=F64) -> ConeVec:
     return ConeVec(
-        l=torch.zeros(layout.l, dtype=F64, device=device),
-        q=tuple(torch.zeros(b.count, b.dim, dtype=F64, device=device)
+        l=torch.zeros(layout.l, dtype=dtype, device=device),
+        q=tuple(torch.zeros(b.count, b.dim, dtype=dtype, device=device)
                 for b in layout.q_buckets),
-        s=tuple(torch.zeros(b.count, b.dim, b.dim, dtype=F64, device=device)
+        s=tuple(torch.zeros(b.count, b.dim, b.dim, dtype=dtype,
+                            device=device)
                 for b in layout.s_buckets),
     )
 
 
-def cv_eye(layout: Layout, device) -> ConeVec:
+def cv_eye(layout: Layout, device, dtype=F64) -> ConeVec:
     """Identity element of K (reference: eyeK.m)."""
     q = []
     for b in layout.q_buckets:
-        e = torch.zeros(b.count, b.dim, dtype=F64, device=device)
+        e = torch.zeros(b.count, b.dim, dtype=dtype, device=device)
         e[:, 0] = 1.0
         q.append(e)
-    s = tuple(torch.eye(b.dim, dtype=F64, device=device)
+    s = tuple(torch.eye(b.dim, dtype=dtype, device=device)
               .expand(b.count, b.dim, b.dim).clone()
               for b in layout.s_buckets)
-    return ConeVec(l=torch.ones(layout.l, dtype=F64, device=device),
+    return ConeVec(l=torch.ones(layout.l, dtype=dtype, device=device),
                    q=tuple(q), s=s)
+
+
+def cv_cast(a, dtype):
+    """A tensor, ConeVec or (nested) tuple of them cast to `dtype` (the
+    reference's cast between precision phases); other values pass."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype)
+    if isinstance(a, tuple):
+        return type(a)(*(cv_cast(v, dtype) for v in a)) \
+            if hasattr(a, "_fields") else tuple(cv_cast(v, dtype)
+                                                for v in a)
+    return a
 
 
 def cv_dot(a: ConeVec, b: ConeVec) -> torch.Tensor:
@@ -122,7 +136,7 @@ def _s_indices(layout: Layout) -> list[np.ndarray]:
 
 
 def from_flat(layout: Layout, x: np.ndarray, device,
-              symmetrize: bool = True) -> ConeVec:
+              symmetrize: bool = True, dtype=F64) -> ConeVec:
     """Split a flat internal vector into bucketed form on `device`.
 
     PSD blocks are symmetrized ((X+X')/2, reference: vecsym.c) unless
@@ -137,7 +151,7 @@ def from_flat(layout: Layout, x: np.ndarray, device,
         sl.append(blk)
 
     def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=F64,
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
     return ConeVec(l=put(x[: layout.l]), q=tuple(put(v) for v in ql),

@@ -23,8 +23,8 @@ import torch
 
 import sedumi_tpu_torch as st
 from chip_smoke import random_sparse_lp
-from sedumi_tpu_torch import chol, ddlinalg, ipm, kernels, opA, pcg, schur, \
-    sparse_chol, sparse_engine, transform
+from sedumi_tpu_torch import chol, ddlinalg, df, ipm, kernels, opA, pcg, \
+    schur, sparse_chol, sparse_engine, transform
 from sedumi_tpu_torch.examples import load_example
 from sedumi_tpu_torch.params import Pars
 
@@ -129,8 +129,154 @@ def test_ldl_masked_kernel(cuda, m):
 
 
 def bits_equal(a, b) -> bool:
+    ints = torch.int64 if a.dtype == torch.float64 else torch.int32
     return a.shape == b.shape and torch.equal(
-        a.contiguous().view(torch.int64), b.contiguous().view(torch.int64))
+        a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+# ------------------------------------------- the precision ladder's kernels
+
+U32 = 2.0**-24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [7, 123, 666])
+def test_dd_residual_f32_kernel(cuda, m):
+    """K1-f32 within 2u|r| + (n + 2L + 2D + 14) u^2 sum|M v| of its twin
+    (u = 2^-24; see chip_smoke.check_dd_residual_f32)."""
+    rng = np.random.default_rng(m)
+    q, _ = np.linalg.qr(rng.standard_normal((m, m)))
+    M = torch.as_tensor((q * np.logspace(0, -6, m)) @ q.T,
+                        dtype=torch.float32, device=cuda)
+    M = 0.5 * (M + M.T)
+    rhs = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
+                          device=cuda)
+    v = torch.linalg.solve(M.double(), rhs.double()).float()
+    n0 = kernels.LAUNCHES["dd_matvec_residual_f32"]
+    r_k = pcg.dd_matvec_residual(M, v, rhs)
+    assert kernels.LAUNCHES["dd_matvec_residual_f32"] == n0 + 1
+    assert r_k.dtype == torch.float32
+    r_p = pcg.dd_matvec_residual_plain(M, v, rhs).double()
+    c = m + 2 * (-(-m // 32)) + 2 * int(np.ceil(np.log2(max(m, 2)))) + 14
+    tol = 2 * U32 * r_p.abs() + c * U32 * U32 * (M.double().abs()
+                                                 @ v.double().abs())
+    assert bool(torch.all((r_k.double() - r_p).abs() <= tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2])
+def test_psd_contrib_coo_f32_kernel(cuda, seed):
+    """K2-f32 within 2 (pad2 + Tmax + 3) u M_abs of its twin (see
+    chip_smoke.check_psd_coo_f32)."""
+    prob = sparse_sdp(seed)
+    aop = opA.build_coo_aop(prob.At, prob.c, prob.layout, device=cuda,
+                            gemm_discount=0.0, dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    for part, (rep, k, d, G, pad2, T) in zip(aop.s_parts, aop.s_meta):
+        assert rep == "coo" and part["gv"].dtype == torch.float32
+        W = schur.psd_gram(torch.as_tensor(
+            rng.standard_normal((k, d, d)), dtype=torch.float32,
+            device=cuda))
+        n0 = kernels.LAUNCHES["psd_contrib_coo_f32"]
+        Mk = schur._psd_contrib_coo_kernel(part, k, d, G, pad2, aop.m + 1, W)
+        assert kernels.LAUNCHES["psd_contrib_coo_f32"] == n0 + 1
+        Mp = schur._psd_contrib_coo_plain(part, k, d, G, pad2, aop.m + 1, W)
+        absp = {key: (v.abs().double() if v.is_floating_point() else v)
+                for key, v in part.items()}
+        Mabs = schur._psd_contrib_coo_plain(absp, k, d, G, pad2, aop.m + 1,
+                                            W.abs().double())
+        c = 2 * (pad2 + int(torch.diff(part["b_rowptr"]).max()) + 3)
+        assert bool(torch.all((Mk.double() - Mp.double()).abs()
+                              <= c * U32 * Mabs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [12, 174])
+def test_ldl_masked_f32_kernel(cuda, m):
+    """K3-f32: masks, pivots and factor bit for bit with the f32 twin."""
+    M = torch.as_tensor(indefinite(m, 3), dtype=torch.float32, device=cuda)
+    n0 = kernels.LAUNCHES["ldl_masked_f32"]
+    fk = chol.ldl_masked(M)
+    assert kernels.LAUNCHES["ldl_masked_f32"] == n0 + 1
+    fp = chol.ldl_masked_plain(M)
+    assert bool(fp.skip.any()) and fk.L.dtype == torch.float32
+    assert torch.equal(fk.skip, fp.skip)
+    for a, b in ((fk.L, fp.L), (fk.d, fp.d), (fk.diagadd, fp.diagadd)):
+        assert bits_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 33), (124, 2383), (37, 5000),
+                                    (1001, 65536)])
+def test_df_gemv_kernels(cuda, rows, n):
+    """K11: df_matvec and df_vecmat within (c_kernel + c_tree) 2^-48
+    sum|a x| of the reference's tree arithmetic (see
+    chip_smoke.check_df_gemv), and within 1e-12 of the f64 product."""
+    rng = np.random.default_rng(rows)
+    A = torch.as_tensor(rng.standard_normal((rows, n))
+                        * np.exp(rng.standard_normal((rows, n))),
+                        device=cuda)
+    Ah, Al = df.df_split64(A)
+    A64 = df.df_to64(Ah, Al)
+    for fn, length in (("df_matvec", n), ("df_vecmat", rows)):
+        xh, xl = df.df_split64(torch.as_tensor(rng.standard_normal(length),
+                                               device=cuda))
+        x64 = df.df_to64(xh, xl)
+        n0 = kernels.LAUNCHES[fn]
+        if fn == "df_matvec":
+            got = df.df_to64(*df.df_matvec(Ah, Al, xh, xl))
+            want = df.df_to64(*df.df_matvec_plain(Ah, Al, xh, xl))
+            S, exact = A64.abs() @ x64.abs(), A64 @ x64
+            L, D, k = -(-n // 32) + 5, 14, -(-n // 16384)
+        else:
+            got = df.df_to64(*df.df_vecmat(xh, xl, Ah, Al))
+            want = df.df_to64(*df.df_vecmat_plain(xh, xl, Ah, Al))
+            S, exact = x64.abs() @ A64.abs(), x64 @ A64
+            L, D, k = rows, int(np.ceil(np.log2(max(rows, 2)))), 1
+        assert kernels.LAUNCHES[fn] == n0 + 1
+        c = (3 * L + 30) + ((D + k) * (D + k + 2) + 7)
+        assert bool(torch.all((got - want).abs() <= c * 2.0**-48 * S)), fn
+        assert float(((got - exact).abs() / S).max()) < 1e-12, fn
+
+
+def solve_nb_mixed(device):
+    ex = load_example("nb")
+    before = dict(kernels.LAUNCHES)
+    x, y, info = st.sedumi(ex.At, ex.b, ex.c, ex.K,
+                           {"fid": 0, "dtype": "mixed"}, device=device)
+    return {"cx": float(ex.c @ x), "by": float(ex.b @ y),
+            "phases": {k: v["iters"] for k, v in info["phases"].items()},
+            "pinf": int(info["pinf"]), "dinf": int(info["dinf"]),
+            "numerr": int(info["numerr"]),
+            "launches": {k: kernels.LAUNCHES[k] - before[k]
+                         for k in kernels.LAUNCHES
+                         if kernels.LAUNCHES[k] != before[k]}}
+
+
+@pytest.mark.cuda
+def test_mixed_ladder_nb_witness(cuda):
+    """nb with pars.dtype='mixed' on the card and on the CPU, both under
+    deterministic algorithms: the same phases in the same order (the
+    reference's on a CPU: f32 8, host64 16), the same host64 iterations,
+    pinf, dinf and numerr, and c'x within 1e-9 relative; the card's f32
+    phase ran K1-f32.  nb's f32 phase ends on a rejected direction before
+    real progress, so its iterates are discarded and host64 restarts in
+    f64 from the initial point; which f32 iteration is rejected moves
+    with the order of the f32 sums (card 7, CPU 8 in the first card run),
+    so the f32 count is printed, not held."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {"cpu": solve_nb_mixed("cpu"), "card": solve_nb_mixed(cuda)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(json.dumps({"nb_mixed_witness": runs}), flush=True)
+    cpu, card = runs["cpu"], runs["card"]
+    assert list(card["phases"]) == list(cpu["phases"]) == ["f32", "host64"]
+    assert card["phases"]["host64"] == cpu["phases"]["host64"]
+    for key in ("pinf", "dinf", "numerr"):
+        assert card[key] == cpu[key] == 0, key
+    assert abs(card["cx"] - cpu["cx"]) <= 1e-9 * abs(cpu["cx"])
+    assert card["launches"].get("dd_matvec_residual_f32", 0) > 0
 
 
 def wide(shape, seed):

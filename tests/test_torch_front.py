@@ -131,8 +131,13 @@ def test_pars_defaults_match_reference():
 
 @pytest.mark.parametrize("dtype", ["mixed", "float32"])
 def test_precision_ladder_not_admitted(dtype):
+    """'auto' does not admit the precision ladder (the card computes f64
+    natively, as the reference's CPU backend does); asked for, the ladder
+    maps as the reference's fp.precision_mode maps it."""
+    import sedumi_tpu.fp as jfp
     from sedumi_tpu_torch import fp
 
-    assert fp.precision_mode("auto") == "f64"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fp.precision_mode(dtype)
+    assert fp.precision_mode("auto") == "f64" == jfp.precision_mode("auto")
+    assert fp.precision_mode("float64") == "f64"
+    assert fp.precision_mode(dtype) == jfp.precision_mode(dtype) \
+        == {"mixed": "mixed", "float32": "f32"}[dtype]

@@ -5,7 +5,8 @@
 * every live pars variant of the f64 path converges (the reference's
   test_pars_live, on the port);
 * argument sniffing, checkpoint/resume, the infeasibility certificate;
-* the routes the port does not cover raise NotImplementedError.
+* the routes the port does not cover raise NotImplementedError (the
+  precision ladder itself: tests/test_torch_precision.py).
 Full arch0/control07 CPU solves are `slow`.
 """
 
@@ -116,9 +117,13 @@ def test_checkpoint_resume(tmp_path):
 
 @pytest.mark.parametrize("pars,item", [
     ({"debug": 1}, "item 11"), ({"mesh_shape": {"blocks": 2}}, "item 10"),
-    ({"dtype": "mixed"}, "item 9"), ({"dtype": "float32"}, "item 9"),
+    ({"dtype": "mixed", "sparse": 1}, "item 9"),
+    ({"dtype": "float32", "sparse": 1}, "item 9"),
     ({"profile": 1}, "item 11")])
 def test_unported_routes_raise(pars, item):
+    """Routes the port does not cover raise instead of falling back; the
+    precision ladder on the sparse engine needs f32 builds of the tile
+    kernels (ROADMAP queue A item 9b) and must not run the dense engine."""
     At, b, c, K = _problem()
     with pytest.raises(NotImplementedError, match=item):
         pt.sedumi(At, b, c, K, {"fid": 0, **pars}, device="cpu")
