@@ -3,11 +3,14 @@
     python3 chip_smoke.py
 
 1. Kernel phase: builds every CUDA kernel of the port from csrc/ (one nvcc
-   per source, in parallel) and holds K1-K7, the f32 builds of K1-K3 and
-   K11 (the double-float GEMV and GEMV-transpose) against their
-   plain-PyTorch twins on the card at the shapes the solver gives them,
-   with the tolerance stated (K1, K2, K6, K11 and the f32 K1, K2 within
-   error bounds; K3, K4, K5, K7 and the f32 K3 bit for bit); times both,
+   per source, in parallel) and holds K1-K7, the f32 builds of K1-K3,
+   K11 (the double-float GEMV and GEMV-transpose) and the batched Jacobi
+   eigensolvers K12 (f64, f32) and K13 (complex128, complex64) against
+   their plain-PyTorch twins on the card at the shapes the solver gives
+   them, with the tolerance stated (K1, K2, K6, K11 and the f32 K1, K2
+   within error bounds; K3, K4, K5, K7 and the f32 K3 bit for bit; K12
+   and K13 within 4 n eps ||A|| in the same eigenvalue slots, with their
+   residual and orthogonality against the plain version's); times both,
    and the card's least time (bound) for the work.  K8-K10 follow the
    sparse path (4.), on its plans.
 2. Dense path: sedumi_tpu_torch.sedumi() on all six bundled examples at
@@ -18,16 +21,21 @@
    redundant-row nb must pass the reference gate (rel <= 1e-6 vs the
    published optimum, pinf = dinf = 0, numerr < 2); the others must finish
    with finite outputs, and each prints its rel, pinf, dinf, numerr and
-   phases.
+   phases.  No Jacobi build may launch on it: the f64 phases take the
+   library eigensolver, as the reference's host phases do.
 3. Mixed-ladder path: pars.dtype='mixed' (f32 -> hybrid -> host64 ->
-   dd64) on nb, arch0, control07, nb+zero-row and a dense SOCP from the
-   reference's feasible_problem generator (copied below), whose hybrid
-   phase takes the double-float operator: K1-f32 must launch in every
-   solve, K2-f32 on arch0, K3-f32 on nb+zero-row and K11 on the SOCP.  The
-   solves the reference package itself passes with 'mixed' on a CPU (nb,
-   arch0, nb+zero-row: the reference gate; the SOCP: its own test's gate
-   against the f64 solve) are gated; control07 (rel 1.288e-6, numerr 1 in
-   the reference) must finish finite.
+   dd64) on quantum, nb, arch0, control07, nb+zero-row, trto3, a dense
+   SOCP from the reference's feasible_problem generator (copied below),
+   whose hybrid phase takes the double-float operator, and the
+   reference's e2e ladder instance: K1-f32 must launch in every bundled
+   example, K2-f32 on arch0, K3-f32 on nb+zero-row, K11 on the SOCP, and
+   the f32 Jacobi K12-f32 on quantum, arch0, control07, trto3 and the
+   e2e instance; no f64 or complex Jacobi build may launch.  The solves
+   the reference package itself passes with 'mixed' on a CPU (quantum,
+   nb, arch0, nb+zero-row: the reference gate; the SOCP and the e2e
+   instance: its own test's gate against the f64 solve) are gated;
+   control07 (rel 1.288e-6, numerr 1 in the reference) and trto3 must
+   finish finite.
 4. Sparse path: five problems through the sparse tile engine
    (SPARSE_SOLVES: an LP with m = 20000, SDPs with m = 5000 and m = 1200,
    an SOCP with m = 850, an LP with three dense columns).  Each must take
@@ -39,7 +47,9 @@
    Then K8-K10 and K2's group layout are held against their plain twins
    on the plans these solves built (LP 20k and SDP 5k).
    Launch counts are zeroed just before each path and read just after;
-   every kernel must have launched on the paths.
+   every kernel must have launched on the paths, but for the builds no
+   card solve reaches (OFF_PATH: the f64 and complex Jacobi), which the
+   kernel phase holds alone.
 5. Prints {"kernels": [...]}, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.  Any failure exits non-zero
    before the last line.  Without a CUDA device it exits 1 at once.
@@ -734,6 +744,219 @@ def check_df_gemv(dev, gen):
 
 
 # --------------------------------------------------------------------------
+# the Jacobi eigensolver: K12 (real symmetric, f64 and f32 builds) and K13
+# (complex Hermitian, complex128 and complex64)
+# --------------------------------------------------------------------------
+
+
+def nt_like(k: int, n: int, dtype, gen, cond: float = 1e4) -> torch.Tensor:
+    """k symmetric (Hermitian for a complex dtype) matrices of order n with
+    eigenvalues spread over `cond` in random order and sign, as the NT
+    and line-search matrices of an IPM iteration are, made in f64/c128 on
+    the host from `gen` and cast."""
+    cplx = dtype in (torch.complex64, torch.complex128)
+    g = torch.randn(k, n, n, generator=gen, dtype=torch.float64)
+    if cplx:
+        g = torch.complex(g, torch.randn(k, n, n, generator=gen,
+                                         dtype=torch.float64))
+    q, _ = torch.linalg.qr(g)
+    w = torch.logspace(0, -np.log10(cond), n, dtype=torch.float64)
+    w = w[torch.randperm(n, generator=gen)] * torch.where(
+        torch.rand(k, n, generator=gen) < 0.3, -1.0, 1.0)
+    a = (q * w[:, None, :].to(q.dtype)) @ q.transpose(-1, -2).conj()
+    return (0.5 * (a + a.transpose(-1, -2).conj())).to(dtype)
+
+
+# Builds that no solve on the card reaches, held by the kernel phase alone:
+# the f64 Jacobi (the f64 phases take the library, as the reference's host
+# phases do) and the complex Jacobi (the reference's device steps take the
+# real embedding of Hermitian buckets, nt.py:112-125).
+OFF_PATH = ("jacobi_eigh", "jacobi_eigh_herm", "jacobi_eigh_herm_c64")
+JACOBI_NAMES = ("jacobi_eigh_f32",) + OFF_PATH
+
+
+def off_norm(A, w, V):
+    """||A V - V diag w||_F per matrix: the Frobenius norm of the
+    off-diagonal part the sweeps left (A = V (diag w + Off) V^H)."""
+    Ad = A.to(torch.complex128 if A.is_complex() else torch.float64)
+    Vd = V.to(Ad.dtype)
+    return torch.linalg.matrix_norm(Ad @ Vd - Vd * w.to(Ad.dtype)[:, None])
+
+
+def jacobi_compare(A, got, want, sweeps, vectors) -> dict:
+    """A Jacobi kernel's result `got` against its plain version's `want`
+    (each (w, V, sweeps run)) on the batch A.  Tolerance: NaN exactly
+    where the plain version has NaN; the sorted eigenvalues within tol =
+    4 n eps ||A||_2 + rem_k + rem_p, where rem = ||A V - V diag w||_F is
+    what the sweeps left off the diagonal (by Weyl each sorted diagonal is
+    within ||Off||_2 <= rem of the eigenvalues of the rotated matrix,
+    itself within the backward error ~n eps ||A|| of A's; where the
+    budget ends the sweeps short of convergence, two roundings leave
+    different remainders; without vectors the plain version's
+    with-vectors rem stands for both); with vectors ||A V - V diag w|| /
+    ||A|| and ||V^H V - I|| within twice the plain version's plus
+    16 n eps.  Returns ok, the slot-by-slot difference (max_abs_err),
+    the sorted one, tol, bit-equality and the sweeps each ran."""
+    from sedumi_tpu_torch import lax_eigh
+
+    (w, V, nsw), (w0, V0, nsw0) = got, want
+    n = A.shape[-1]
+    eps = float(torch.finfo(w0.dtype).eps)
+    rows = torch.isfinite(A).flatten(1).all(dim=1).nonzero().flatten()
+    finite = torch.isfinite(w0)
+    out = dict(
+        sweeps=int(nsw.max()), sweeps_plain=int(nsw0.max()),
+        bit_equal=bool(torch.equal(w, w0)) and (
+            not vectors or bool(torch.equal(V, V0))),
+        max_abs_err=float(torch.abs(w - w0)[finite].max())
+        if bool(finite.any()) else 0.0, sorted_err=0.0, tol=0.0)
+    ok = bool(torch.equal(torch.isnan(w), torch.isnan(w0)))
+    if len(rows):
+        plain = lax_eigh._jacobi_herm_plain if A.is_complex() \
+            else lax_eigh._jacobi_plain
+        wv, Vv, _ = (w0, V0, None) if vectors else plain(A, sweeps, True)
+        rem_p = float(off_norm(A[rows], wv[rows], Vv[rows]).max())
+        rem_k = float(off_norm(A[rows], w[rows], V[rows]).max()) \
+            if vectors else rem_p
+        out["tol"] = 4 * n * eps * float(torch.abs(w0[rows]).max()) \
+            + rem_k + rem_p
+        out["sorted_err"] = float(torch.abs(
+            torch.sort(w[rows], dim=-1).values
+            - torch.sort(w0[rows], dim=-1).values).max())
+        ok = ok and out["sorted_err"] <= out["tol"]
+    if vectors and len(rows) == A.shape[0]:
+        Ad = A.to(torch.complex128 if A.is_complex() else torch.float64)
+        nrm = torch.linalg.matrix_norm(Ad)
+        eye = torch.eye(n, dtype=Ad.dtype, device=A.device)
+        for key, V_, w_ in (("", V, w), ("_plain", V0, w0)):
+            Vd = V_.to(Ad.dtype)
+            out["res" + key] = float((off_norm(A, w_, V_) / nrm).max())
+            out["orth" + key] = float(torch.linalg.matrix_norm(
+                Vd.transpose(-1, -2).conj() @ Vd - eye).max())
+        ok = ok and out["res"] <= 2 * out["res_plain"] + 16 * n * eps \
+            and out["orth"] <= 2 * out["orth_plain"] + 16 * n * eps
+    out["ok"] = ok
+    return out
+
+
+def jacobi_case(label, A, sweeps, vectors, time_it=True):
+    """One batch through the kernel and its plain version on the card,
+    held to jacobi_compare's tolerance.  Prints the comparison, times the
+    kernel, the plain version and torch.linalg.eigh (or eigvalsh) on the
+    same batch, and the bound."""
+    from sedumi_tpu_torch import kernels, lax_eigh
+
+    name = lax_eigh._KERNELS[A.dtype][2]
+    herm = A.is_complex()
+    plain = lax_eigh._jacobi_herm_plain if herm else lax_eigh._jacobi_plain
+    n0 = kernels.LAUNCHES[name]
+    got = lax_eigh._jacobi(A, sweeps, vectors)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES[name] != n0 + 1:
+        fail(f"{name} did not launch its kernel on {label}")
+    line = dict(case=label, kernel=name, k=A.shape[0], n=A.shape[-1],
+                vectors=vectors, sweeps_budget=sweeps,
+                **jacobi_compare(A, got, plain(A, sweeps, vectors), sweeps,
+                                 vectors))
+    if time_it and bool(torch.isfinite(A).all()):
+        k, n = A.shape[0], A.shape[-1]
+        reps = max(1, min(50, int(2e8 // (k * n ** 3))))
+        line["ms"] = cuda_ms(lambda: lax_eigh._jacobi(A, sweeps, vectors),
+                             reps)
+        line["plain_ms"] = cuda_ms(lambda: plain(A, sweeps, vectors), 1,
+                                   warmup=0)
+        lib = torch.linalg.eigh if vectors else torch.linalg.eigvalsh
+        line["library_ms"] = cuda_ms(lambda: lib(A), reps)
+        # read A once; write w (real) and V.  Flops per sweep of the
+        # rotations at the padded order: 9 n^3 with vectors, 6 n^3
+        # without (3 per updated element); complex 42 n^3 and 28 n^3 (14
+        # real flops per complex update)
+        esize = A.element_size()
+        nbytes = k * n * n * esize * (2 if vectors else 1) \
+            + k * n * esize // (2 if herm else 1)
+        per = (42.0 if herm else 9.0) if vectors else (28.0 if herm
+                                                       else 6.0)
+        fp32 = A.dtype in (torch.float32, torch.complex64)
+        line["bound_ms"], line["bound_by"] = bound_ms(
+            nbytes, line["sweeps"] * k * per * (n + n % 2) ** 3,
+            PEAK_F32_PER_S if fp32 else PEAK_F64_PER_S)
+    print(f"K12/13 {json.dumps(line)}", flush=True)
+    if not line["ok"]:
+        fail(f"{name} disagrees with its plain version on {label}")
+    return line
+
+
+def check_jacobi(dev, gen):
+    """K12 and K13 against their plain versions at the solves' shapes:
+    arch0's PSD bucket (order 161, padded to 162) in f32 with vectors at
+    the full budget and without at the coarse budget, and in f64 with
+    vectors (no card solve reaches the f64 build); control07's order-128
+    superblock in f32; trto3's order-321 bucket in f32 (the device-memory
+    variant); a padded multi-bucket batch (buckets (3, 7), (1, 12), (2, 4)
+    in one batch of order 12); 2500 blocks of order 4 (sdp5k's); a batch
+    holding a NaN, which must come back NaN after the two unconditional
+    sweeps; K13 at orders 8 and 60.  Returns the four kernels' rows,
+    each timed at its first case."""
+    from sedumi_tpu_torch import lax_eigh
+    from sedumi_tpu_torch.linalg_ops import _pad_stack
+
+    F32, F64 = torch.float32, torch.float64
+    C64, C128 = torch.complex64, torch.complex128
+    sw = lax_eigh._sweeps_for
+    csw = lax_eigh.coarse_sweeps_for
+    lines, worst = {}, {}
+
+    def case(label, A, sweeps, vectors, time_it=True):
+        line = jacobi_case(label, A.to(dev), sweeps, vectors, time_it)
+        lines.setdefault(line["kernel"], line)
+        worst[line["kernel"]] = max(worst.get(line["kernel"], 0.0),
+                                    line["max_abs_err"])
+        return line
+
+    case("arch0 f32 eigh", nt_like(1, 161, F32, gen), sw(161, F32), True)
+    case("arch0 f32 eigvalsh coarse", nt_like(2, 161, F32, gen),
+         csw(161, F32), False)
+    case("arch0 f64 eigh", nt_like(1, 161, F64, gen), sw(161, F64), True)
+    case("control07 f32 eigh", nt_like(1, 128, F32, gen), sw(128, F32), True)
+    case("trto3 f32 eigh (device memory)", nt_like(1, 321, F32, gen),
+         sw(321, F32), True)
+    if lax_eigh.smem_bytes(322, F32, True) <= lax_eigh.SMEM_MAX:
+        fail("trto3's order-322 batch should take the device-memory variant")
+    mats = [nt_like(k, d, F32, gen) for k, d in ((3, 7), (1, 12), (2, 4))]
+    case("padded multi-bucket f32 eigh", _pad_stack(mats)[0], sw(12, F32),
+         True)
+    case("2500 x 4 f32 eigh", nt_like(2500, 4, F32, gen), sw(4, F32), True)
+    A = nt_like(3, 12, F32, gen)
+    A[1, 2, 5] = float("nan")
+    line = case("NaN batch f32", A, sw(12, F32), True, time_it=False)
+    if line["sweeps"] != 2:
+        fail(f"the NaN batch ran {line['sweeps']} sweeps, not 2")
+    for dt in (C128, C64):
+        rdt = lax_eigh._real_dtype(dt)
+        case(f"herm {dt} n=60", nt_like(2, 60, dt, gen), sw(60, rdt), True)
+        case(f"herm {dt} n=8", nt_like(4, 8, dt, gen), sw(8, rdt), True)
+    rows = []
+    for name, replaces in (("jacobi_eigh", "sedumi_tpu/lax_eigh.py:49"),
+                           ("jacobi_eigh_f32", "sedumi_tpu/lax_eigh.py:49"),
+                           ("jacobi_eigh_herm", "sedumi_tpu/lax_eigh.py:187"),
+                           ("jacobi_eigh_herm_c64",
+                            "sedumi_tpu/lax_eigh.py:187")):
+        line = lines[name]
+        src = "jacobi_herm.cu" if "herm" in name else "jacobi_eigh.cu"
+        rows.append(dict(name=name, route="cuda",
+                         source=f"sedumi_tpu_torch/csrc/{src}",
+                         replaces=replaces,
+                         max_abs_err=worst[name],
+                         ms=line["ms"], plain_ms=line["plain_ms"],
+                         bound_ms=line["bound_ms"],
+                         bound_by=line["bound_by"],
+                         library_ms=line["library_ms"]))
+    print("K12/K13 rows timed at: " + ", ".join(
+        f"{r['name']} {lines[r['name']]['case']}" for r in rows), flush=True)
+    return rows
+
+
+# --------------------------------------------------------------------------
 # sparse-engine kernels (K8-K10, and K2's group layout), on the plans the
 # sparse path built
 # --------------------------------------------------------------------------
@@ -1040,9 +1263,10 @@ def run_example(ex, gate: bool, pars=None):
 
 
 def feasible_problem(K: dict, m: int, seed: int, density: float = 0.8):
-    """A copy of the reference's generators.feasible_problem for real LP
-    and Lorentz cones (the same draws from numpy.random.default_rng(seed)):
-    a strictly feasible pair (x0, y0, z0), b = A x0, c = A'y0 + z0.
+    """A copy of the reference's generators.feasible_problem for real LP,
+    Lorentz and PSD cones (the same draws from
+    numpy.random.default_rng(seed)): a strictly feasible pair (x0, y0,
+    z0), A symmetric on each PSD block, b = A x0, c = A'y0 + z0.
     Returns (At, b, c) with At in the SeDuMi transpose convention."""
     import scipy.sparse as sp
 
@@ -1054,6 +1278,9 @@ def feasible_problem(K: dict, m: int, seed: int, density: float = 0.8):
             bar = rng.normal(size=d - 1) * 0.4
             parts.append(np.concatenate(
                 [[np.linalg.norm(bar) + rng.uniform(0.5, 1.5)], bar]))
+        for d in K.get("s", []):
+            M = rng.normal(size=(d, d))
+            parts.append((M @ M.T + 0.5 * np.eye(d)).reshape(-1, order="F"))
         return np.concatenate(parts)
 
     x0, z0 = interior(), interior()
@@ -1061,6 +1288,12 @@ def feasible_problem(K: dict, m: int, seed: int, density: float = 0.8):
     n = x0.size
     A = rng.normal(size=(m, n))
     A *= rng.random((m, n)) < density
+    off = K.get("l", 0) + sum(K.get("q", []))
+    for d in K.get("s", []):
+        blk = A[:, off:off + d * d].reshape(m, d, d)
+        A[:, off:off + d * d] = (0.5 * (blk + blk.transpose(0, 2, 1))
+                                 ).reshape(m, -1)
+        off += d * d
     return sp.csc_matrix(A.T), A @ x0, A.T @ y0 + z0
 
 
@@ -1074,16 +1307,22 @@ def feasible_problem(K: dict, m: int, seed: int, density: float = 0.8):
 # the f32 phase ends moves with the f32 summation order (reference: f32 7,
 # a rejected hybrid step, host64 9; port: f32 5, hybrid 2, host64 7).
 SOCP_DENSE = ({"q": [50] * 8}, 120, 7)
+# The reference's e2e ladder instance (tests/test_hybrid.py and the port's
+# tests/test_torch_precision.py): LP, two Lorentz cones and PSD blocks of
+# orders 8 and 6, which the data layer packs into one superblock of order
+# 64, m = 30.  The reference lands it with 'mixed' on a CPU at c'x
+# 300.4585009045144 (f32 5, host64 9, dd64 2; numerr 0).
+E2E_LADDER = ({"l": 8, "q": [5, 4], "s": [8, 6]}, 30, 11)
 
 
-def run_mixed_socp():
-    """The dense SOCP with pars.dtype='mixed' against its f64 solve: the
-    gate of the reference's test_mixed_ladder_with_df_operator_e2e
+def run_mixed_generated(label, problem):
+    """A generated problem with pars.dtype='mixed' against its f64 solve:
+    the gate of the reference's test_mixed_ladder_with_df_operator_e2e
     (pinf = dinf = 0, numerr = 0, c'x within 1e-6 (1 + |c'x|))."""
     import sedumi_tpu_torch as st
     from sedumi_tpu_torch import kernels
 
-    K, m, seed = SOCP_DENSE
+    K, m, seed = problem
     At, b, c = feasible_problem(K, m, seed)
     x64, _, _ = st.sedumi(At, b, c, K, {"fid": 0}, device="cuda")
     before = dict(kernels.LAUNCHES)
@@ -1096,17 +1335,17 @@ def run_mixed_socp():
     counts = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
     cx64, cx = float(c @ x64), float(c @ x)
     rel = abs(cx - cx64) / (1.0 + abs(cx64))
-    print(f"socp-dense (q 8x50, m=120) {{\"dtype\": \"mixed\"}}: "
+    print(f"{label} {{\"dtype\": \"mixed\"}}: "
           f"iter={info['iter']} cx={cx!r} cx_f64={cx64!r} rel={rel:.3e} "
           f"pinf={info['pinf']} dinf={info['dinf']} "
           f"numerr={info['numerr']} wall={wall:.2f}s "
           f"phases={json.dumps(info['phases'])} "
           f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
     if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y))):
-        fail("socp-dense: non-finite solution")
+        fail(f"{label}: non-finite solution")
     if not (info["pinf"] == 0 and info["dinf"] == 0 and info["numerr"] == 0
             and rel <= 1e-6):
-        fail("socp-dense: the reference test's gate not met")
+        fail(f"{label}: the reference test's gate not met")
     return counts
 
 
@@ -1321,6 +1560,7 @@ def main() -> None:
             check_dd_panel_chol(dev, gen), check_dd_residual_f32(dev, gen),
             check_psd_coo_f32(dev, gen), check_ldl_masked_f32(dev, gen)]
     rows += check_df_gemv(dev, gen)
+    rows += check_jacobi(dev, gen)
     torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()
@@ -1343,19 +1583,28 @@ def main() -> None:
     if counts.get("ldl_masked", 0) == 0:
         fail("nb+zero-row: the masked-LDL' fallback never ran")
     total = dict(kernels.LAUNCHES)
+    # the f64 phases take the library eigensolver, as the reference's
+    # host phases do
+    if any(total[k] for k in JACOBI_NAMES):
+        fail("a Jacobi kernel launched on the dense f64 path")
     torch.cuda.empty_cache()
 
     # the mixed precision ladder, its counts zeroed just before and read
     # just after.  Gated where the reference package meets the gate with
-    # 'mixed' on a CPU: nb (f32 8, host64 16; rel 9.17e-8), arch0 (f32 13,
-    # host64 44, dd64 8; rel 4.85e-7), nb+zero-row (as nb); control07
-    # (f32 15, hybrid 5, host64 12, dd64 11) lands at rel 1.288e-6, numerr
-    # 1 there, so it is ungated
+    # 'mixed' on a CPU: quantum (f32 5, host64 64; rel 1.54e-9), nb (f32
+    # 8, host64 16; rel 9.17e-8), arch0 (f32 13, host64 44, dd64 8; rel
+    # 4.85e-7), nb+zero-row (as nb); control07 (f32 15, hybrid 5, host64
+    # 12, dd64 11) lands at rel 1.288e-6, numerr 1 there, so it is
+    # ungated, as trto3 is in f64.  The f32 and hybrid phases take the
+    # Jacobi kernel K12-f32 (quantum's Hermitian bucket on its real
+    # embedding); host64 and dd64 the library, and no f64 or complex
+    # Jacobi build launches.
     kernels.reset_launch_counts()
     mixed = {"dtype": "mixed"}
     t_mixed = time.time()
-    for name, gate in (("nb", True), ("arch0", True), ("control07", False),
-                       ("nb+zero-row", True)):
+    for name, gate in (("quantum", True), ("nb", True), ("arch0", True),
+                       ("control07", False), ("nb+zero-row", True),
+                       ("trto3", False)):
         ex = with_zero_row(load_example("nb")) if name == "nb+zero-row" \
             else load_example(name)
         counts, info = run_example(ex, gate, mixed)
@@ -1366,10 +1615,19 @@ def main() -> None:
             fail("arch0: K2-f32 never formed the f32 Schur complement")
         if name == "nb+zero-row" and counts.get("ldl_masked_f32", 0) == 0:
             fail("nb+zero-row: the f32 masked-LDL' fallback never ran")
-    counts = run_mixed_socp()
+        if name in ("quantum", "arch0", "control07", "trto3") \
+                and counts.get("jacobi_eigh_f32", 0) == 0:
+            fail(f"{name}: the f32 Jacobi kernel never ran")
+    counts = run_mixed_generated("socp-dense (q 8x50, m=120)", SOCP_DENSE)
     if counts["df_matvec"] == 0 or counts["df_vecmat"] == 0:
         fail("socp-dense: the double-float operator (K11) never ran")
+    counts = run_mixed_generated("e2e ladder (l 8, q 5+4, s 8+6, m=30)",
+                                 E2E_LADDER)
+    if counts.get("jacobi_eigh_f32", 0) == 0:
+        fail("e2e ladder: the f32 Jacobi kernel never ran")
     print(f"mixed-ladder path: {time.time() - t_mixed:.1f}s", flush=True)
+    if any(kernels.LAUNCHES[k] for k in OFF_PATH):
+        fail("an f64 or complex Jacobi build launched on the mixed path")
     for k, v in kernels.LAUNCHES.items():
         total[k] += v
     torch.cuda.empty_cache()
@@ -1384,6 +1642,8 @@ def main() -> None:
         if name == "lp900+3dense" and counts["ldl_masked"] == 0:
             fail("lp900+3dense: K3 never factored the Woodbury capacitance")
         torch.cuda.empty_cache()
+    if any(kernels.LAUNCHES[k] for k in JACOBI_NAMES):
+        fail("a Jacobi kernel launched on the sparse f64 path")
     for k, v in kernels.LAUNCHES.items():
         total[k] += v
 
@@ -1396,7 +1656,7 @@ def main() -> None:
                                dev, gen, rng)
     for row in rows:
         row["launches"] = total[row["name"]]
-        if row["launches"] == 0:
+        if row["launches"] == 0 and row["name"] not in OFF_PATH:
             fail(f"kernel {row['name']} never launched on the path")
 
     keys = ("name", "route", "source", "replaces", "launches",

@@ -35,6 +35,7 @@ from .chol import LdlFactor, chol_factor, chol_solve, ldl_masked, \
     ldl_solve, refine_solve
 from .cones import Layout
 from .fp import resolve_dtype, torch_dtype
+from .lax_eigh import coarse_sweeps_of
 from .linalg_ops import cholesky, eigh_multi
 from .params import CholPars, Pars
 from .pcg import pcg, refine_solve_dd
@@ -623,7 +624,8 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
 
             rcg_q = [jd.q_remap(wq, clipd(jd.q_eig(wq))) for wq in w_t.q]
             rcg_s = [(V * clipd(ww)[..., None, :]) @ V.transpose(-1, -2)
-                     for ww, V in eigh_multi(list(w_t.s))]
+                     for ww, V in eigh_multi(list(w_t.s),
+                                             sweeps=coarse_sweeps_of(w_t.s))]
             rc_g = ConeVec(l=clipd(w_t.l), q=tuple(rcg_q), s=tuple(rcg_s))
             dg = direction(rc_g, clipd(wtk_t), r_scale=0.0)
             dxg, dyg, dzg, dtaug, dkappag = dg

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .linalg_ops import eigvalsh as _eigvalsh_impl
+from .linalg_ops import eigh as _eigh_impl, eigvalsh as _eigvalsh_impl
 
 _INF = float("inf")
 
@@ -138,8 +138,13 @@ def q_maxstep(x: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
 
 
 def s_eig(x: torch.Tensor) -> torch.Tensor:
-    """Batched eigenvalues of symmetric blocks (reference psdeig.m)."""
+    """Batched eigenvalues of symmetric blocks (reference psdeig.m); in
+    no particular order under the Jacobi solver."""
     return _eigvalsh_impl(x)
+
+
+def s_eigh(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _eigh_impl(x)
 
 
 def s_jmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -161,6 +166,17 @@ def s_congr(r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def s_congr_t(r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """R X R' batched."""
     return r @ x @ r.transpose(-1, -2)
+
+
+def s_maxstep_scaled(lam: torch.Tensor, dxs: torch.Tensor) -> torch.Tensor:
+    """Per-block sup step for Lam + t dXs >= 0, Lam = diag(lam) > 0:
+    1 / max(0, -lambda_min(Lam^-1/2 dXs Lam^-1/2)) (maxstep.m:62-66)."""
+    isq = 1.0 / torch.sqrt(lam)
+    m = dxs * isq[..., :, None] * isq[..., None, :]
+    lmin = torch.amin(_eigvalsh_impl(m), dim=-1)
+    tiny = torch.finfo(lam.dtype).tiny
+    return torch.where(lmin < 0, -1.0 / torch.clamp_max(lmin, -tiny),
+                       torch.full_like(lmin, _INF))
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,9 @@ NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
+# A, V, schedule, ratio, done, sweeps run; batch, groups, n, sweeps,
+# vectors; eps; shared-memory variant
+_JACOBI_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _P]
 # source file -> {C launch function: argtypes}
 SOURCES = {
     "dd_residual.cu": {
@@ -71,15 +74,22 @@ SOURCES = {
     "df_gemv.cu": {
         "df_matvec_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "df_vecmat_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "jacobi_eigh.cu": {
+        "jacobi_eigh_f64_launch": _JACOBI_ARGS,
+        "jacobi_eigh_f32_launch": _JACOBI_ARGS},
+    "jacobi_herm.cu": {
+        "jacobi_herm_c128_launch": _JACOBI_ARGS,
+        "jacobi_herm_c64_launch": _JACOBI_ARGS},
 }
 
-# K1-K3 count their f64 and f32 builds apart (the *_f32 names)
+# K1-K3, K12 and K13 count their builds apart (the *_f32 and *_c64 names)
 LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "ozaki_split": 0, "dd_accumulate": 0, "dd_gemv": 0,
             "dd_panel_chol": 0, "tile_factor": 0, "tile_update": 0,
             "tile_solve": 0, "dd_matvec_residual_f32": 0,
             "psd_contrib_coo_f32": 0, "ldl_masked_f32": 0, "df_matvec": 0,
-            "df_vecmat": 0}
+            "df_vecmat": 0, "jacobi_eigh": 0, "jacobi_eigh_f32": 0,
+            "jacobi_eigh_herm": 0, "jacobi_eigh_herm_c64": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -101,7 +111,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> Path:
+    """The library's path, keyed by its source, the shared headers and
+    the flags."""
     text = (SRC_DIR / src).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):
+        text += hdr.read_bytes()
     tag = hashlib.sha1(text).hexdigest()[:12]
     return BUILD_DIR / f"{Path(src).stem}_{tag}.so"
 

@@ -10,7 +10,11 @@ Counterpart of the reference's nt.py (reference analog: updtransfo.m):
         so R^{-1} X R^{-T} = R' Z R = diag(sig).
   Buckets of real-embedded complex-Hermitian blocks run the chain natively
   in complex arithmetic at half the order, then re-embed R, Rinv and the
-  doubled spectrum (the reference's CPU path, nt.py:112-134).
+  doubled spectrum, where the library eigensolver runs (the reference's
+  herm_ok, nt.py:112-134); under the Jacobi solver they stay embedded, as
+  the reference's device-traced steps do.
+* The maxstep spectra take the coarse Jacobi budget (lax_eigh.
+  coarse_sweeps_of), which the library path ignores.
 
 Every eps-relative guard takes its eps and tiny from the operands' dtype
 (f64, or f32 and complex64 in the precision ladder's f32 phases), as the
@@ -24,7 +28,9 @@ from typing import NamedTuple
 import torch
 
 from . import jordan as jd
-from .linalg_ops import cholesky, eigh_multi, eigvalsh_multi
+from .lax_eigh import coarse_sweeps_of
+from .linalg_ops import _use_jacobi, cholesky, eigh_herm_multi, eigh_multi, \
+    eigvalsh_multi
 from .structs import ConeVec
 
 
@@ -122,8 +128,10 @@ def compute_scaling(x: ConeVec, z: ConeVec,
         q_uinv.append(jd.q_inv(u))
         q_lam.append(jd.q_quad_rep_apply(u, zq))
 
-    # --- PSD ---
-    herm_t = tuple(herm) if herm is not None else (False,) * len(x.s)
+    # --- PSD: native complex only where the library eigensolver runs ---
+    herm_ok = not _use_jacobi(x.l.device)
+    herm_t = tuple(herm) if (herm is not None and herm_ok) \
+        else (False,) * len(x.s)
     n_s = len(x.s)
     s_r, s_rinv, s_lam = [None] * n_s, [None] * n_s, [None] * n_s
     lz_list, m_list, ids_r = [], [], []
@@ -150,7 +158,7 @@ def compute_scaling(x: ConeVec, z: ConeVec,
         s_rinv[bi] = (qmat.transpose(-1, -2) / shalf[..., :, None]) @ lzt
         s_lam[bi] = sig
     for bi, lzc, (sig2, qc) in zip(ids_h, lzc_list,
-                                   eigh_multi(mc_list)):
+                                   eigh_herm_multi(mc_list)):
         sig = torch.sqrt(_sig_floor(sig2))
         shalf = torch.sqrt(sig)
         lzh = lzc.transpose(-1, -2).conj()
@@ -241,9 +249,10 @@ def _maxstep_psd_probes(base: ConeVec, dv: ConeVec):
     return out
 
 
-def _psd_steps(m_list):
+def _psd_steps(m_list, sweeps=None):
     out = []
-    for lmin_all in (eigvalsh_multi(m_list) if m_list else []):
+    for lmin_all in (eigvalsh_multi(m_list, sweeps=sweeps)
+                     if m_list else []):
         lmin = torch.amin(lmin_all, dim=-1)
         big = torch.full_like(lmin, float("inf"))
         tiny = torch.finfo(lmin.dtype).tiny
@@ -266,13 +275,22 @@ def _min_all(steps, like: torch.Tensor) -> torch.Tensor:
     return torch.min(torch.stack(steps)) if steps else _inf(like)
 
 
+def maxstep_from(base: ConeVec, dv: ConeVec) -> torch.Tensor:
+    """sup {a : base + a dv in K} for a general interior scaled-space
+    point (maxstep.m: psdfactor + psdinvscale + minpsdeig per block), the
+    PSD spectra at the coarse budget."""
+    steps = [jd.l_maxstep(base.l, dv.l)] + _q_steps(base, dv) \
+        + _psd_steps(_maxstep_psd_probes(base, dv),
+                     sweeps=coarse_sweeps_of(base.s))
+    return _min_all(steps, base.l)
+
+
 def maxstep_pair(bx: ConeVec, dvx: ConeVec, bz: ConeVec, dvz: ConeVec):
-    """sup {a : b + a dv in K} for the general interior scaled-space points
-    bx and bz (maxstep.m: psdfactor + psdinvscale + minpsdeig per block),
-    both sides' PSD probes in one eigvalsh call per bucket."""
+    """(maxstep_from(bx, dvx), maxstep_from(bz, dvz)) with both sides'
+    PSD probes in one padded eigvalsh batch."""
     mx = _maxstep_psd_probes(bx, dvx)
     mz = _maxstep_psd_probes(bz, dvz)
-    both = _psd_steps(mx + mz)
+    both = _psd_steps(mx + mz, sweeps=coarse_sweeps_of(bx.s))
     steps_x = [jd.l_maxstep(bx.l, dvx.l)] + _q_steps(bx, dvx) \
         + both[:len(mx)]
     steps_z = [jd.l_maxstep(bz.l, dvz.l)] + _q_steps(bz, dvz) \
@@ -289,5 +307,5 @@ def maxstep_scaled(S: Scaling, dv: ConeVec) -> torch.Tensor:
     for sig, ds in zip(S.s_lam, dv.s):
         isq = 1.0 / torch.sqrt(sig)
         m_list.append(ds * isq[..., :, None] * isq[..., None, :])
-    steps += _psd_steps(m_list)
+    steps += _psd_steps(m_list, sweeps=coarse_sweeps_of(m_list))
     return _min_all(steps, S.lam_l)

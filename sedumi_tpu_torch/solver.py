@@ -17,6 +17,12 @@ caller's device:
   branch);
 * 'float32': [f32].
 
+Each phase's steps take the eigensolver the reference gives that phase
+(phase_eigh_impl): on the card the f64 phases (f64, host64, dd64, and the
+f64 recenter into host64 and dd64) take the library, as the reference's
+host-CPU phases do, and everything else follows linalg_ops' dispatch,
+which is the Jacobi kernels on the card.
+
 dd64 (ddengine.DdSchurEngine) is admitted with the dense engine only, by
 the reference's gate (m <= 1200, dd formation cost below 2.5e11) and not
 in 'float32'.  A phase is left on a rejected direction, a stall, a
@@ -31,6 +37,7 @@ and the profiling/debug options.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Mapping
@@ -38,7 +45,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from . import fp, ipm
+from . import fp, ipm, linalg_ops
 from .cones import ConeSpec, Layout
 from .ddengine import DdSchurEngine
 from .df import build_df_aop
@@ -224,6 +231,27 @@ def phase_ladder(engine_kind: str, layout: Layout, m: int,
     if engine_kind == "dense" and dd64_admitted(layout, m) and mode != "f32":
         order = order + ["dd64"]
     return order
+
+
+def phase_eigh_impl(phase: str, device) -> str | None:
+    """The eigensolver override of a phase's steps: 'xla' (the library)
+    for the f64 phases on the card, which the reference runs on its host
+    CPU under impl_override('xla') (reference solver.py:389-397, 442-457,
+    663-701, 763-771); None (linalg_ops' dispatch: Jacobi on the card)
+    for the f32 and hybrid phases, and for every phase on the CPU, where
+    the reference wraps nothing."""
+    if torch.device(device).type == "cuda" \
+            and phase in ("f64", "host64", "dd64"):
+        return "xla"
+    return None
+
+
+def _phase_eigh(phase: str, device):
+    """A context that applies phase_eigh_impl (an outer override stays
+    in force where it gives None)."""
+    impl = phase_eigh_impl(phase, device)
+    return linalg_ops.impl_override(impl) if impl \
+        else contextlib.nullcontext()
 
 
 def solve_internal(At, b, c, layout: Layout, pars: Pars,
@@ -469,7 +497,10 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
             # an off-center f32 iterate would leave every widelen trial
             # outside the wide region: recenter it in f32 first
             s = ipm.cast_state(recenter_lo(ipm.cast_state(s, F32)), dt_hi)
-        state = recenter_hi(s) if bundles[nxt]["recenter"] else s
+        if bundles[nxt]["recenter"]:
+            with _phase_eigh(nxt, device):
+                s = recenter_hi(s)
+        state = s
         _log(pars, f"  escalating {cur} -> {nxt} ({why})")
         rw_p, rw_d = _measure_resid_inf(state)
         cur = nxt
@@ -512,9 +543,10 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
             bd = bundles[cur]
             st_in = ipm.cast_state(state, bd["sdt"]) \
                 if bd["sdt"] != dt_hi else state
-            new_state, st = bd["step"](bd["aop"], bd["b"], bd["rs"], st_in,
-                                       reg, sd_on=sd_on,
-                                       aop_lo=bd["aop_lo"])
+            with _phase_eigh(cur, device):
+                new_state, st = bd["step"](bd["aop"], bd["b"], bd["rs"],
+                                           st_in, reg, sd_on=sd_on,
+                                           aop_lo=bd["aop_lo"])
             rec = st.to_host()
             finite = np.isfinite(rec["mu"]) and bool(rec["chol_ok"]) \
                 and np.isfinite(rec["alpha"])

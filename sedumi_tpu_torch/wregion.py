@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from . import jordan as jd
+from .lax_eigh import coarse_sweeps_of
 from .linalg_ops import cholesky, eigvalsh_multi
 from .structs import ConeVec, cv_map
 
@@ -20,7 +21,10 @@ def prod_spectrum(x: ConeVec, z: ConeVec) -> torch.Tensor:
 
     LP: x_i z_i.  SOC: spectra of P(sqrt(x)) z.  PSD: eig(U' Z U) with
     X = U U'.  Leading batch dimensions (those of x.l beyond its last) are
-    kept: the result is [..., num_eigs]."""
+    kept: the result is [..., num_eigs]; they are independent problems to
+    the Jacobi solver, as under the reference's jax.vmap.  The PSD
+    spectra take the coarse Jacobi budget: they feed the neighborhood
+    tests (delta against beta = 0.5), where ~3 digits suffice."""
     lead = tuple(x.l.shape[:-1])
     parts = [x.l * z.l]
     for xq, zq in zip(x.q, z.q):
@@ -30,7 +34,8 @@ def prod_spectrum(x: ConeVec, z: ConeVec) -> torch.Tensor:
     for xs, zs in zip(x.s, z.s):
         u = cholesky(xs)
         m_list.append(u.transpose(-1, -2) @ zs @ u)
-    parts += eigvalsh_multi(m_list)
+    parts += eigvalsh_multi(m_list, sweeps=coarse_sweeps_of(m_list),
+                            lead=len(lead))
     return torch.cat([p.reshape(lead + (-1,)) for p in parts], dim=-1)
 
 

@@ -22,9 +22,9 @@ import scipy.sparse as sp
 import torch
 
 import sedumi_tpu_torch as st
-from chip_smoke import random_sparse_lp
-from sedumi_tpu_torch import chol, ddlinalg, df, ipm, kernels, opA, pcg, \
-    schur, sparse_chol, sparse_engine, transform
+from chip_smoke import jacobi_compare, nt_like, random_sparse_lp
+from sedumi_tpu_torch import chol, ddlinalg, df, ipm, kernels, lax_eigh, \
+    linalg_ops, opA, pcg, schur, sparse_chol, sparse_engine, transform
 from sedumi_tpu_torch.examples import load_example
 from sedumi_tpu_torch.params import Pars
 
@@ -277,6 +277,114 @@ def test_mixed_ladder_nb_witness(cuda):
         assert card[key] == cpu[key] == 0, key
     assert abs(card["cx"] - cpu["cx"]) <= 1e-9 * abs(cpu["cx"])
     assert card["launches"].get("dd_matvec_residual_f32", 0) > 0
+
+
+# ------------------------------------------------ K12 / K13 (Jacobi)
+
+
+def jacobi_pair(A, sweeps, vectors):
+    """(kernel, plain) results on the card; the kernel launched once."""
+    name = lax_eigh._KERNELS[A.dtype][2]
+    plain = lax_eigh._jacobi_herm_plain if A.is_complex() \
+        else lax_eigh._jacobi_plain
+    n0 = kernels.LAUNCHES[name]
+    got = lax_eigh._jacobi(A, sweeps, vectors)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 1
+    return got, plain(A, sweeps, vectors)
+
+
+def check_jacobi_case(A, sweeps, vectors):
+    """The kernel against its plain version at chip_smoke's tolerance
+    (jacobi_compare states it); prints the comparison."""
+    got, want = jacobi_pair(A, sweeps, vectors)
+    res = jacobi_compare(A, got, want, sweeps, vectors)
+    print(json.dumps({"n": A.shape[-1], "dtype": str(A.dtype),
+                      "vectors": vectors, **res}))
+    assert res["ok"], res
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [2, 3, 8, 17, 64, 118, 120, 122, 162, 168,
+                               170, 172, 322])
+def test_jacobi_eigh_kernel(cuda, n, dtype):
+    """K12 against its plain version on both sides of the shared-memory
+    edges (with vectors, rows padded to n + 1: f64 118 in, 120 out; f32
+    168 in, 170 out; without: f64 168 in, 170 out) and on the
+    device-memory variant, at the full budget with vectors and the
+    coarse budget without."""
+    A = nt_like(2, n, dtype, torch.Generator().manual_seed(n)).to(cuda)
+    for sweeps, vectors in ((lax_eigh._sweeps_for(n, dtype), True),
+                            (lax_eigh.coarse_sweeps_for(n, dtype), False)):
+        check_jacobi_case(A, sweeps, vectors)
+    with pytest.raises(ValueError):
+        lax_eigh._jacobi(A.to(torch.float16), 2, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+@pytest.mark.parametrize("n", [3, 8, 60, 84, 86])
+def test_jacobi_herm_kernel(cuda, n, dtype):
+    """K13 against its plain version (complex128 with vectors: 84 in
+    shared memory, 86 in device memory)."""
+    A = nt_like(2, n, dtype, torch.Generator().manual_seed(n)).to(cuda)
+    check_jacobi_case(
+        A, lax_eigh._sweeps_for(n, lax_eigh._real_dtype(dtype)), True)
+
+
+@pytest.mark.cuda
+def test_jacobi_nan_and_multi_bucket(cuda):
+    """A batch holding a NaN stops after the two unconditional sweeps
+    with NaN in that entry only.  The padded multi-bucket batch: the
+    kernel against its plain version on the padded batch, and
+    linalg_ops.eigh_multi (Jacobi by default on the card) returns that
+    batch's corners per bucket, bit for bit (the same kernel on the same
+    input)."""
+    gen = torch.Generator().manual_seed(5)
+    A = nt_like(3, 12, torch.float32, gen)
+    A[1, 2, 5] = float("nan")
+    got, want = check_jacobi_case(A.to(cuda), 6, True)
+    assert int(got[2]) == 2 and int(want[2]) == 2
+    assert bool(torch.isnan(got[0][1]).all())
+    assert bool(torch.isfinite(got[0][[0, 2]]).all())
+    mats = [nt_like(k, d, torch.float32, gen).to(cuda)
+            for k, d in ((3, 7), (1, 12), (2, 4))]
+    P, _ = linalg_ops._pad_stack(mats)
+    (w0, V0, _), _ = check_jacobi_case(
+        P, lax_eigh._sweeps_for(12, P.dtype), True)
+    n0 = kernels.LAUNCHES["jacobi_eigh_f32"]
+    out = linalg_ops.eigh_multi(mats)
+    assert kernels.LAUNCHES["jacobi_eigh_f32"] == n0 + 1
+    off = 0
+    for (w, V), m in zip(out, mats):
+        k, d = m.shape[0], m.shape[-1]
+        assert torch.equal(w, w0[off:off + k, :d])
+        assert torch.equal(V, V0[off:off + k, :d, :d])
+        off += k
+
+
+def arch0_launches(device, dtype):
+    ex = load_example("arch0")
+    before = dict(kernels.LAUNCHES)
+    st.sedumi(ex.At, ex.b, ex.c, ex.K, {"fid": 0, "dtype": dtype},
+              device=device)
+    return {k: kernels.LAUNCHES[k] - before[k] for k in
+            ("jacobi_eigh", "jacobi_eigh_f32", "jacobi_eigh_herm",
+             "jacobi_eigh_herm_c64")}
+
+
+@pytest.mark.cuda
+def test_arch0_eigensolver_per_phase(cuda):
+    """'mixed' arch0 on the card runs K12-f32 in its f32 phase and no f64
+    or complex Jacobi (host64 and dd64 take the library); 'auto' (f64)
+    runs none."""
+    mixed = arch0_launches(cuda, "mixed")
+    assert mixed["jacobi_eigh_f32"] > 0
+    assert mixed["jacobi_eigh"] == mixed["jacobi_eigh_herm"] \
+        == mixed["jacobi_eigh_herm_c64"] == 0
+    assert sum(arch0_launches(cuda, "auto").values()) == 0
 
 
 def wide(shape, seed):
