@@ -11,8 +11,8 @@
    within error bounds; K3, K4, K5, K7 and the f32 K3 bit for bit; K12
    and K13 within 4 n eps ||A|| in the same eigenvalue slots, with their
    residual and orthogonality against the plain version's); times both,
-   and the card's least time (bound) for the work.  K8-K10 follow the
-   sparse path (4.), on its plans.
+   and the card's least time (bound) for the work.  K8-K10 and their f32
+   builds follow the sparse paths (4., 5.), on their plans.
 2. Dense path: sedumi_tpu_torch.sedumi() on all six bundled examples at
    full size (quantum, nb, arch0, control07, trto3, OH), plus nb with one
    redundant all-zero constraint (its Schur complement is singular, so
@@ -44,13 +44,20 @@
    m = 5000 are gated as the reference's tests gate them (pinf = dinf = 0,
    max(err) < 1e-7).  Each
    prints its host plan time, iterations, phases, wall time and launches.
+5. Mixed sparse path: the precision ladder on the sparse engine
+   (MIXED_SPARSE_SOLVES: lp20k, sdp1200, socp850 and lp900+3dense with
+   pars.dtype='mixed', then socp850 with 'float32').  Each must take the
+   sparse engine and the f32 phase and launch K8-f32, K9-f32 and K10-f32;
+   sdp1200 must launch K2-f32 and K12-f32, lp900+3dense K3-f32.  All but
+   lp20k and the 'float32' solve are gated as in 4.
    Then K8-K10 and K2's group layout are held against their plain twins
-   on the plans these solves built (LP 20k and SDP 5k).
+   on the plans the f64 solves built (LP 20k and SDP 5k), and K8-f32 to
+   K10-f32 on f32 storage of the LP 20k and SDP 1200 plans.
    Launch counts are zeroed just before each path and read just after;
    every kernel must have launched on the paths, but for the builds no
    card solve reaches (OFF_PATH: the f64 and complex Jacobi), which the
    kernel phase holds alone.
-5. Prints {"kernels": [...]}, the card's name and power limit, and as the
+6. Prints {"kernels": [...]}, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.  Any failure exits non-zero
    before the last line.  Without a CUDA device it exits 1 at once.
 """
@@ -984,23 +991,25 @@ def interior_scaling(meta, dev, rng):
     return nt.compute_scaling(point(), point())
 
 
-def tile_case(plan, dev, rng):
+def tile_case(plan, dev, rng, dtype=torch.float64):
     """(operator, tile storage of A H A') of a sparse plan at a random
-    interior point: the factor's input as TileSchurEngine.prepare
-    assembles it."""
+    interior point, in `dtype`: the factor's input as
+    TileSchurEngine.prepare assembles it."""
     from sedumi_tpu_torch import sparse_chol as sc
     from sedumi_tpu_torch import sparse_engine as se
 
     arrays, meta = plan
-    aop = se.make_sparse_lq_op(arrays, meta, device=dev)
+    aop = se.make_sparse_lq_op(arrays, meta, dtype=dtype, device=dev)
     S = interior_scaling(meta, dev, rng)
+    S = type(S)(*[v.to(dtype) if isinstance(v, torch.Tensor)
+                  else tuple(a.to(dtype) for a in v) for v in S])
     vals, _, _ = se.ada_values(aop, S)
     st = sc.assemble_tiles(meta["nslot"], meta["B"], aop.arrays["asm"], vals,
                            aop.arrays["pad_idx"])
     return aop, st
 
 
-def escalation_tiles(B: int, gen) -> torch.Tensor:
+def escalation_tiles(B: int, gen, dtype=torch.float64) -> torch.Tensor:
     """Three diagonal tiles (lower triangles): SPD; indefinite by less than
     dmax + 1 (fails the lifted factor only); indefinite beyond it (fails
     both rungs)."""
@@ -1009,24 +1018,45 @@ def escalation_tiles(B: int, gen) -> torch.Tensor:
     first, both = D.clone(), D.clone()
     first[3, 3] = -0.5
     both[5, 4] = both[4, 5] = 50.0
-    return torch.stack([torch.tril(a) for a in (D, first, both)])
+    return torch.stack([torch.tril(a) for a in (D, first, both)]).to(dtype)
 
 
-def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12):
-    """K8 and K9 level by level on the LP 20k and SDP plans, at ADA = A H A'
-    of a random interior point: each level's K8 against the plain version
-    from the same storage (rungs equal, factor within 1e-9 of the level's
+# K8-K10 tolerances against their plain versions, per storage dtype: the
+# escalation tiles' rungs 0-1 and each level's factor (relative to the
+# level's max|L|), and the solve (relative to max|x|).  f32: the plain
+# versions factor with cuSOLVER and solve with cuBLAS in another order;
+# on the lp20k and sdp1200 plans the kernels came within 2.3e-7 of both
+# scales on an H100, and a wrong index or a lost update moves entries by
+# O(1).
+TILE_TOL = {torch.float64: {"esc": 1e-12, "factor": 1e-9, "solve": 1e-9},
+            torch.float32: {"esc": 1e-5, "factor": 1e-5, "solve": 1e-4}}
+
+
+def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
+                       dtype=torch.float64):
+    """K8 and K9 level by level on the given plans (f64: LP 20k and SDP 5k;
+    f32: LP 20k and SDP 1200), at ADA = A H A' of a random interior point
+    in `dtype` storage: each level's K8 against the plain version from the
+    same storage (rungs equal, factor within TILE_TOL of the level's
     max|L|), then K9 from the same post-K8 storage (within
-    2 (B + P + 1) eps (|D| + sum_pairs |A| |B|'), P = the destination's
-    pair count); K10 on the kernels' factor against the plain solve
-    (within 1e-9 of max|x|).  K8 also on three 128 x 128 tiles built for
-    rungs 0, 1 and 2 (the rung-2 diagonal bit for bit).  Times K8 and K9 at
-    the LP's widest level and K10's whole solve there."""
+    2 (B + P + 1) (eps (|D| + sum_pairs |A| |B|') + tiny), P = the
+    destination's pair count, eps of `dtype`, tiny the f32 underflow
+    threshold in f32 and 0 in f64); K10 on the kernels' factor against the
+    plain solve (within TILE_TOL of max|x|).  K8 also on three 128 x 128
+    tiles built for rungs 0, 1 and 2 (the rung-2 diagonal bit for bit in
+    f64, within 1 ulp in f32).  Times K8 and K9 at the LP's widest level
+    and K10's whole solve there.  The f32 build (K8-f32 to K10-f32) runs
+    with the reference's unchanged canceltol and reg, rounded to f32."""
     from sedumi_tpu_torch import kernels
     from sedumi_tpu_torch import sparse_chol as sc
 
+    f32 = dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    n8, n9, n10 = ("tile_factor" + sfx, "tile_update" + sfx,
+                   "tile_solve" + sfx)
+    tol = TILE_TOL[dtype]
     B = 128
-    st = escalation_tiles(B, gen).to(dev)
+    st = escalation_tiles(B, gen, dtype).to(dev)
     ref = st.clone()
     lv3 = {"dslot": torch.arange(3, device=dev),
            "off_slot": torch.zeros(0, dtype=torch.int64, device=dev),
@@ -1034,46 +1064,56 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12):
     rk = sc.tile_factor(st, lv3, reg, canceltol)
     rp = sc.tile_factor_plain(ref, lv3, reg, canceltol)
     err_esc = float(torch.abs(st[:2] - ref[:2]).max())
-    print(f"K8 escalation tiles: rungs kernel {rk.tolist()} plain "
+    same2, err2 = bit_diff(st[2], ref[2])
+    ulp2 = float((torch.abs(st[2] - ref[2])
+                  / torch.finfo(dtype).eps
+                  / torch.clamp_min(torch.abs(ref[2]),
+                                    torch.finfo(dtype).tiny)).max())
+    print(f"K8{sfx} escalation tiles: rungs kernel {rk.tolist()} plain "
           f"{rp.tolist()}, max err rungs 0-1 {err_esc:.3e}, rung-2 tile "
-          f"bit for bit {bit_diff(st[2], ref[2])[0]}", flush=True)
+          f"bit for bit {same2} (max err {err2:.3e})", flush=True)
     if rk.tolist() != [0, 1, 2] or rp.tolist() != [0, 1, 2]:
-        fail("tile_factor: the escalation tiles took the wrong rungs")
-    if not (err_esc <= 1e-12 * float(torch.abs(ref[:2]).max())
-            and bit_diff(st[2], ref[2])[0]):
-        fail("tile_factor kernel disagrees with its plain version on the "
+        fail(f"{n8}: the escalation tiles took the wrong rungs")
+    if not (err_esc <= tol["esc"] * float(torch.abs(ref[:2]).max())
+            and (same2 or (f32 and ulp2 <= 1.0))):
+        fail(f"{n8} kernel disagrees with its plain version on the "
              "escalation tiles")
 
-    eps = float(np.finfo(np.float64).eps)
-    worst = {"tile_factor": err_esc, "tile_update": 0.0, "tile_solve": 0.0}
+    eps = float(torch.finfo(dtype).eps)
+    # f32 fill products reach the subnormal range, which the plain GEMM
+    # may flush to zero: an underflow term per summand (0 in f64)
+    tiny = float(torch.finfo(dtype).tiny) if f32 else 0.0
+    worst = {n8: err_esc, n9: 0.0, n10: 0.0}
     timing = {}
     for label, plan in plans.items():
-        aop, st = tile_case(plan, dev, rng)
+        aop, st = tile_case(plan, dev, rng, dtype)
         levels = aop.levels
         wide = max(range(len(levels)),
                    key=lambda i: (levels[i]["cols"].numel(),
                                   levels[i]["pair_a"].numel()))
         n_rung = [0, 0, 0]
-        ratio9 = 0.0
+        ratio9, rel8 = 0.0, 0.0
         for i, lv in enumerate(levels):
             if label == "lp20k" and i == wide:
                 timing["before"] = st.clone()
             ref = st.clone()
-            n0 = kernels.LAUNCHES["tile_factor"]
+            n0 = kernels.LAUNCHES[n8]
             rk = sc.tile_factor(st, lv, reg, canceltol)
             torch.cuda.synchronize()
-            if kernels.LAUNCHES["tile_factor"] == n0:
-                fail("tile_factor did not launch its kernel")
+            if kernels.LAUNCHES[n8] == n0:
+                fail(f"{n8} did not launch its kernel")
             rp = sc.tile_factor_plain(ref, lv, reg, canceltol)
             if not torch.equal(rk, rp):
-                fail(f"tile_factor: rungs differ on {label} level {i}")
+                fail(f"{n8}: rungs differ on {label} level {i}")
             for r in rk.tolist():
                 n_rung[r] += 1
             slots = torch.cat([lv["dslot"], lv["off_slot"]])
             err = float(torch.abs(st[slots] - ref[slots]).max())
-            worst["tile_factor"] = max(worst["tile_factor"], err)
-            if not err <= 1e-9 * float(torch.abs(ref[slots]).max()):
-                fail(f"tile_factor kernel disagrees with its plain version "
+            worst[n8] = max(worst[n8], err)
+            scale = float(torch.abs(ref[slots]).max())
+            rel8 = max(rel8, err / scale)
+            if not err <= tol["factor"] * scale:
+                fail(f"{n8} kernel disagrees with its plain version "
                      f"on {label} level {i} (max err {err:.3e})")
             if not lv["pair_a"].numel():
                 continue
@@ -1085,42 +1125,43 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12):
                 @ torch.abs(st[lv["pair_b"]]).mT)
             c = 2.0 * (B + float(torch.diff(ptr).max()) + 1.0)
             ref = st.clone()
-            n0 = kernels.LAUNCHES["tile_update"]
+            n0 = kernels.LAUNCHES[n9]
             sc.tile_update(st, lv)
             torch.cuda.synchronize()
-            if kernels.LAUNCHES["tile_update"] != n0 + 1:
-                fail("tile_update did not launch its kernel")
+            if kernels.LAUNCHES[n9] != n0 + 1:
+                fail(f"{n9} did not launch its kernel")
             sc.tile_update_plain(ref, lv)
             diff = torch.abs(st[dst] - ref[dst])
-            worst["tile_update"] = max(worst["tile_update"],
-                                       float(diff.max()))
-            ratio9 = max(ratio9, float((diff / (c * eps * bound)).max()))
-            if not bool(torch.all(diff <= c * eps * bound)):
-                fail(f"tile_update kernel outside its bound on {label} "
-                     f"level {i}")
+            lim = c * (eps * bound + tiny)
+            worst[n9] = max(worst[n9], float(diff.max()))
+            ratio9 = max(ratio9, float((diff / lim).max()))
+            if not bool(torch.all(diff <= lim)):
+                fail(f"{n9} kernel outside its bound on {label} level {i}")
         rhs = torch.randn(aop.meta["ntiles_n"], generator=gen,
-                          dtype=torch.float64).to(dev)
-        n0 = kernels.LAUNCHES["tile_solve"]
+                          dtype=torch.float64).to(dev, dtype)
+        n0 = kernels.LAUNCHES[n10]
         xk = sc.tile_solve(st, rhs, levels)
         torch.cuda.synchronize()
-        if kernels.LAUNCHES["tile_solve"] == n0:
-            fail("tile_solve did not launch its kernels")
+        if kernels.LAUNCHES[n10] == n0:
+            fail(f"{n10} did not launch its kernels")
         xp = sc.tile_solve_plain(st, rhs, levels)
         err = float(torch.abs(xk - xp).max())
-        worst["tile_solve"] = max(worst["tile_solve"], err)
-        print(f"K8-K10 {label}: ntc={aop.meta['ntc']} "
+        worst[n10] = max(worst[n10], err)
+        print(f"K8-K10{sfx} {label}: ntc={aop.meta['ntc']} "
               f"levels={len(levels)} widest={levels[wide]['cols'].numel()} "
-              f"cols, rungs {n_rung}, worst K9 err/bound={ratio9:.3e}, K10 "
-              f"max err {err:.3e} (max|x| {float(xp.abs().max()):.3e})",
-              flush=True)
-        if not err <= 1e-9 * float(torch.abs(xp).max()):
-            fail(f"tile_solve kernel disagrees with its plain version on "
+              f"cols, rungs {n_rung}, worst K8 err/max|L|={rel8:.3e}, worst "
+              f"K9 err/bound={ratio9:.3e}, K10 max err {err:.3e} (max|x| "
+              f"{float(xp.abs().max()):.3e})", flush=True)
+        if not err <= tol["solve"] * float(torch.abs(xp).max()):
+            fail(f"{n10} kernel disagrees with its plain version on "
                  f"{label}")
         if label == "lp20k":
             timing.update(levels=levels, wide=wide, L=st, rhs=rhs)
 
     # --- times at the LP 20k plan: K8 and K9 at its widest level, K10's
-    # whole solve
+    # whole solve; bounds in the storage dtype's bytes and at its rate
+    esz = torch.finfo(dtype).bits // 8
+    peak = PEAK_F32_PER_S if f32 else PEAK_F64_PER_S
     levels, lv, before = timing["levels"], timing["levels"][timing["wide"]], \
         timing["before"]
     L, rhs = timing["L"], timing["rhs"]
@@ -1144,45 +1185,46 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12):
     Dl = D + (canceltol * dmax + 1e-300)[:, None, None] \
         * torch.eye(B, dtype=D.dtype, device=dev)
     nc, no = lv["dslot"].numel(), lv["off_slot"].numel()
-    b8 = bound_ms(16.0 * B * B * (nc + no), nc * B**3 / 3.0 + no * B**3)
-    row8 = dict(name="tile_factor", route="cuda",
+    b8 = bound_ms(2.0 * esz * B * B * (nc + no),
+                  nc * B**3 / 3.0 + no * B**3, peak)
+    row8 = dict(name=n8, route="cuda",
                 source="sedumi_tpu_torch/csrc/tile_chol.cu",
                 replaces="sedumi_tpu/sparse_chol.py:469",
-                max_abs_err=worst["tile_factor"],
+                max_abs_err=worst[n8],
                 ms=cuda_ms(k8, 20) - t_copy, plain_ms=cuda_ms(p8, 5) - t_copy,
                 bound_ms=b8[0], bound_by=b8[1],
                 library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(Dl), 20))
     np_ = lv["pair_a"].numel()
     nsrc = torch.unique(torch.cat([lv["pair_a"], lv["pair_b"]])).numel()
-    b9 = bound_ms(8.0 * B * B * (nsrc + 2 * lv["pair_dst"].numel()),
-                  2.0 * B**3 * np_)
+    b9 = bound_ms(esz * B * B * (nsrc + 2 * lv["pair_dst"].numel()),
+                  2.0 * B**3 * np_, peak)
     work9 = before.clone()
-    row9 = dict(name="tile_update", route="cuda",
+    row9 = dict(name=n9, route="cuda",
                 source="sedumi_tpu_torch/csrc/tile_update.cu",
                 replaces="sedumi_tpu/sparse_chol.py:514",
-                max_abs_err=worst["tile_update"],
+                max_abs_err=worst[n9],
                 ms=cuda_ms(lambda: sc.tile_update(work9, lv), 20),
                 plain_ms=cuda_ms(lambda: sc.tile_update_plain(work9, lv), 5),
                 bound_ms=b9[0], bound_by=b9[1], library_ms=None)
     ntiles = sum(v["dslot"].numel() + v["off_slot"].numel() for v in levels)
     noff = sum(v["off_slot"].numel() for v in levels)
-    b10 = bound_ms(8.0 * B * B * ntiles + 16.0 * rhs.numel(),
-                   2.0 * B * B * (ntiles - noff) + 4.0 * B * B * noff)
+    b10 = bound_ms(esz * B * B * ntiles + 2.0 * esz * rhs.numel(),
+                   2.0 * B * B * (ntiles - noff) + 4.0 * B * B * noff, peak)
     dsl = torch.cat([v["dslot"] for v in levels])
     Ld, yd = L[dsl], rhs.reshape(-1, B, 1)[:dsl.numel()].clone()
-    row10 = dict(name="tile_solve", route="cuda",
+    row10 = dict(name=n10, route="cuda",
                  source="sedumi_tpu_torch/csrc/tile_solve.cu",
                  replaces="sedumi_tpu/sparse_chol.py:525",
-                 max_abs_err=worst["tile_solve"],
+                 max_abs_err=worst[n10],
                  ms=cuda_ms(lambda: sc.tile_solve(L, rhs, levels), 20),
                  plain_ms=cuda_ms(lambda: sc.tile_solve_plain(L, rhs, levels),
                                   5),
                  bound_ms=b10[0], bound_by=b10[1],
                  library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
                      Ld, yd, upper=False), 20))
-    print(f"K8/K9 timed at the LP 20k widest level: {nc} columns, {no} off "
-          f"tiles, {np_} pairs; K10 over {len(levels)} levels, {ntiles} "
-          f"tiles", flush=True)
+    print(f"K8/K9{sfx} timed at the LP 20k widest level: {nc} columns, {no} "
+          f"off tiles, {np_} pairs; K10{sfx} over {len(levels)} levels, "
+          f"{ntiles} tiles", flush=True)
     return [row8, row9, row10]
 
 
@@ -1474,11 +1516,27 @@ SPARSE_SOLVES = [
 ]
 
 
-def run_sparse(name, make, pars, gate, plans):
+# The precision ladder on the sparse engine: the same problems and pars
+# with pars.dtype='mixed' ([f32, hybrid, host64]; K8-f32 to K10-f32 in the
+# f32 and hybrid phases), gated as in f64 but lp20k, whose f64 gate holds
+# without the refinement in f64 only; sdp5k is left out (its host plan
+# alone takes ~30 s).  Then socp850 with 'float32', ungated: f32 alone
+# cannot reach 1e-7.
+MIXED_SPARSE_SOLVES = [
+    (name + " mixed", make, {**pars, "dtype": "mixed"}, name != "lp20k")
+    for name, make, pars, _ in SPARSE_SOLVES if name != "sdp5k"] + [
+    ("socp850 float32", sparse_socp,
+     {"fid": 0, "optstep": 0, "dtype": "float32"}, False)]
+TILE_F64 = ("tile_factor", "tile_update", "tile_solve")
+TILE_F32 = ("tile_factor_f32", "tile_update_f32", "tile_solve_f32")
+
+
+def run_sparse(name, make, pars, gate, plans, tiles=TILE_F64):
     """One sparse solve on the card.  The solver's route_engine is wrapped
     to time the host plan and keep it (for the kernel checks).  Every solve
-    must take the sparse engine and finish with finite outputs; a gated one
-    must also meet the reference's gate."""
+    must take the sparse engine, finish with finite outputs and launch the
+    tile kernels `tiles`; a gated one must also meet the reference's
+    gate."""
     import sedumi_tpu_torch as st
     from sedumi_tpu_torch import kernels, solver
 
@@ -1521,11 +1579,10 @@ def run_sparse(name, make, pars, gate, plans):
     if gate and not (info["pinf"] == 0 and info["dinf"] == 0
                      and max(info["err"]) < 1e-7):
         fail(f"{name}: the reference's sparse-path gate not met")
-    if any(counts[k] == 0 for k in ("tile_factor", "tile_update",
-                                    "tile_solve")):
+    if any(counts[k] == 0 for k in tiles):
         fail(f"{name}: a tile-Cholesky kernel never ran in its solve")
     plans[name] = planned["plan"]
-    return counts
+    return counts, info
 
 
 def main() -> None:
@@ -1636,7 +1693,7 @@ def main() -> None:
     kernels.reset_launch_counts()
     plans = {}
     for name, make, pars, gate in SPARSE_SOLVES:
-        counts = run_sparse(name, make, pars, gate, plans)
+        counts, _ = run_sparse(name, make, pars, gate, plans)
         if name.startswith("sdp") and counts["psd_contrib_coo"] == 0:
             fail(f"{name}: K2 never built the PSD groups in its solve")
         if name == "lp900+3dense" and counts["ldl_masked"] == 0:
@@ -1647,6 +1704,30 @@ def main() -> None:
     for k, v in kernels.LAUNCHES.items():
         total[k] += v
 
+    # the mixed/f32 ladder on the sparse engine, its counts zeroed just
+    # before and read just after: every solve takes K8-f32 to K10-f32 on
+    # the sparse engine; sdp1200's f32 phase builds its PSD groups with
+    # K2-f32 and scales its blocks with K12-f32, lp900+3dense factors its
+    # capacitance with K3-f32
+    kernels.reset_launch_counts()
+    t_ms = time.time()
+    for name, make, pars, gate in MIXED_SPARSE_SOLVES:
+        counts, info = run_sparse(name, make, pars, gate, {}, TILE_F32)
+        if "f32" not in info["phases"]:
+            fail(f"{name}: the f32 phase never ran")
+        if name.startswith("sdp") and (counts["psd_contrib_coo_f32"] == 0
+                                       or counts["jacobi_eigh_f32"] == 0):
+            fail(f"{name}: K2-f32 or K12-f32 never ran in its f32 phase")
+        if name.startswith("lp900") and counts["ldl_masked_f32"] == 0:
+            fail(f"{name}: K3-f32 never factored the capacitance")
+        torch.cuda.empty_cache()
+    print(f"mixed sparse path: {time.time() - t_ms:.1f}s", flush=True)
+    if any(kernels.LAUNCHES[k] for k in OFF_PATH):
+        fail("an f64 or complex Jacobi build launched on the mixed sparse "
+             "path")
+    for k, v in kernels.LAUNCHES.items():
+        total[k] += v
+
     # the sparse engine's kernels at the plans' shapes
     rng = np.random.default_rng(20261016)
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
@@ -1654,6 +1735,8 @@ def main() -> None:
                                                         rng))
     rows += check_tile_kernels({k: plans[k] for k in ("lp20k", "sdp5k")},
                                dev, gen, rng)
+    rows += check_tile_kernels({k: plans[k] for k in ("lp20k", "sdp1200")},
+                               dev, gen, rng, dtype=torch.float32)
     for row in rows:
         row["launches"] = total[row["name"]]
         if row["launches"] == 0 and row["name"] not in OFF_PATH:

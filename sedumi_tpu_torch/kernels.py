@@ -64,13 +64,20 @@ SOURCES = {
         "dd_panel_chol_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P]},
     "tile_chol.cu": {
         "tile_diag_launch": [_P, _P, _P, _I, _I, _D, _D, _P],
-        "tile_off_launch": [_P, _P, _P, _I, _I, _P]},
+        "tile_off_launch": [_P, _P, _P, _I, _I, _P],
+        "tile_diag_f32_launch": [_P, _P, _P, _I, _I, _D, _D, _P],
+        "tile_off_f32_launch": [_P, _P, _P, _I, _I, _P]},
     "tile_update.cu": {
-        "tile_update_launch": [_P, _P, _P, _P, _P, _I, _I, _P]},
+        "tile_update_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "tile_update_f32_launch": [_P, _P, _P, _P, _P, _I, _I, _P]},
     "tile_solve.cu": {
         "tile_fwd_diag_launch": [_P, _P, _P, _P, _I, _I, _P],
         "tile_fwd_scatter_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-        "tile_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+        "tile_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "tile_fwd_diag_f32_launch": [_P, _P, _P, _P, _I, _I, _P],
+        "tile_fwd_scatter_f32_launch": [_P, _P, _P, _P, _P, _P, _I, _I,
+                                        _P],
+        "tile_bwd_f32_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
     "df_gemv.cu": {
         "df_matvec_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "df_vecmat_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P]},
@@ -82,11 +89,13 @@ SOURCES = {
         "jacobi_herm_c64_launch": _JACOBI_ARGS},
 }
 
-# K1-K3, K12 and K13 count their builds apart (the *_f32 and *_c64 names)
+# K1-K3, K8-K10, K12 and K13 count their builds apart (the *_f32 and
+# *_c64 names)
 LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "ozaki_split": 0, "dd_accumulate": 0, "dd_gemv": 0,
             "dd_panel_chol": 0, "tile_factor": 0, "tile_update": 0,
-            "tile_solve": 0, "dd_matvec_residual_f32": 0,
+            "tile_solve": 0, "tile_factor_f32": 0, "tile_update_f32": 0,
+            "tile_solve_f32": 0, "dd_matvec_residual_f32": 0,
             "psd_contrib_coo_f32": 0, "ldl_masked_f32": 0, "df_matvec": 0,
             "df_vecmat": 0, "jacobi_eigh": 0, "jacobi_eigh_f32": 0,
             "jacobi_eigh_herm": 0, "jacobi_eigh_herm_c64": 0}

@@ -23,6 +23,10 @@ f64 recenter into host64 and dd64) take the library, as the reference's
 host-CPU phases do, and everything else follows linalg_ops' dispatch,
 which is the Jacobi kernels on the card.
 
+The sparse route (TileSchurEngine) takes the same ladder: each phase's
+operator is make_sparse_lq_op in the phase's dtype (f32 for the f32 phase,
+f64 plus an f32 aop_lo for the hybrid phase, f64 for host64), and the
+hybrid phase keeps the f64 COO operator for its residuals, not DfAOp.
 dd64 (ddengine.DdSchurEngine) is admitted with the dense engine only, by
 the reference's gate (m <= 1200, dd formation cost below 2.5e11) and not
 in 'float32'.  A phase is left on a rejected direction, a stall, a
@@ -31,8 +35,7 @@ escalation can skip the hybrid rung and discard a junk f32 trajectory.
 Control scalars live on the host; each iteration is one ipm.make_step
 call on the device.  Routes this port does not cover raise
 NotImplementedError naming the ROADMAP item instead of falling back: a
-device mesh (pars.mesh_shape), the mixed/f32 modes on the sparse engine,
-and the profiling/debug options.
+device mesh (pars.mesh_shape) and the profiling/debug options.
 """
 
 from __future__ import annotations
@@ -300,11 +303,6 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
     engine_kind, sp_plan = route_engine(At, c_s, layout, pars)
     mode = fp.precision_mode(pars.dtype)
     if engine_kind == "sparse":
-        if mode != "f64":
-            raise NotImplementedError(
-                f"pars.dtype={pars.dtype!r} on the sparse engine: the f32 "
-                "builds of the tile kernels K8-K10 are not ported yet "
-                "(ROADMAP queue A item 9b)")
         sp_meta = sp_plan[1]
         _log(pars, f"sparse Schur path: ADA nnz {sp_meta['ada_nnz']} "
                    f"(density {sp_meta['ada_density']:.3f}), "
@@ -314,9 +312,11 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
     ops = {}
 
     def _op(dtype):
-        """The operator in `dtype`, built once per dtype."""
+        """The operator in `dtype`, built once per dtype (reference
+        solver.py:307-311)."""
         if dtype not in ops:
-            ops[dtype] = make_sparse_lq_op(*sp_plan, device=device) \
+            ops[dtype] = make_sparse_lq_op(*sp_plan, dtype=dtype,
+                                           device=device) \
                 if engine_kind == "sparse" else \
                 build_coo_aop(At, c_s, layout, device=device, dtype=dtype)
         return ops[dtype]
@@ -324,7 +324,10 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
     def _bundle(sdt, aop, engine=None, compute_dtype=None, aop_lo=None,
                 recenter=False):
         """One precision phase: its step, operators and data (reference
-        solver.py:399-468)."""
+        solver.py:399-468).  On the sparse route every phase gets its own
+        TileSchurEngine, which works in the dtype of the operator and the
+        scaling it is handed (in the hybrid phase the f32 aop_lo), and
+        never reads pars.schur_dtype, as the reference's does not."""
         if engine_kind == "sparse":
             engine = TileSchurEngine(pars)
         return dict(

@@ -26,6 +26,11 @@ comparisons):
   update pairs (csrc/tile_update.cu);
 * K10 :func:`tile_solve` -- L L' x = b level by level (csrc/tile_solve.cu).
 
+Each works in the storage's dtype: f64, or f32 in the precision ladder's
+f32 and hybrid phases, where the wrappers launch the f32 builds (K8-f32,
+K9-f32, K10-f32, counted apart as tile_*_f32).  As in the reference's f32
+trace, reg and canceltol (pars.chol.canceltol, unchanged in every dtype)
+are rounded to the storage dtype, so in f32 the lift's + 1e-300 adds 0.
 On a CUDA tensor each wrapper launches its kernel or raises.  The factor
 updates the storage in place.
 """
@@ -311,31 +316,40 @@ def tile_factor_plain(st: torch.Tensor, lv: dict, reg: float,
     return rung
 
 
+def _suffix(st: torch.Tensor) -> str:
+    """The kernels' name suffix for the storage dtype: '' (f64) or '_f32';
+    raises for any other dtype."""
+    if st.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"tile kernels take f32 or f64, got {st.dtype}")
+    return "_f32" if st.dtype == torch.float32 else ""
+
+
 def _tile_factor_kernel(st: torch.Tensor, lv: dict, reg: float,
                         canceltol: float) -> torch.Tensor:
-    kernels.check_cuda(st, dtype=torch.float64)
+    sfx = _suffix(st)
+    kernels.check_cuda(st)
     kernels.check_cuda(lv["dslot"], lv["off_slot"], lv["off_dslot"],
                        dtype=torch.int64)
     B = st.shape[-1]
     nc = lv["dslot"].numel()
     rung = torch.empty(nc, dtype=torch.int32, device=st.device)
-    kernels.launch("tile_chol.cu", "tile_diag_launch", st.data_ptr(),
+    kernels.launch("tile_chol.cu", f"tile_diag{sfx}_launch", st.data_ptr(),
                    lv["dslot"].data_ptr(), rung.data_ptr(), nc, B,
                    float(reg), float(canceltol))
-    kernels.LAUNCHES["tile_factor"] += 1
+    kernels.LAUNCHES["tile_factor" + sfx] += 1
     no = lv["off_slot"].numel()
     if no:
-        kernels.launch("tile_chol.cu", "tile_off_launch", st.data_ptr(),
-                       lv["off_slot"].data_ptr(), lv["off_dslot"].data_ptr(),
-                       no, B)
-        kernels.LAUNCHES["tile_factor"] += 1
+        kernels.launch("tile_chol.cu", f"tile_off{sfx}_launch",
+                       st.data_ptr(), lv["off_slot"].data_ptr(),
+                       lv["off_dslot"].data_ptr(), no, B)
+        kernels.LAUNCHES["tile_factor" + sfx] += 1
     return rung
 
 
 def tile_factor(st: torch.Tensor, lv: dict, reg: float,
                 canceltol: float = 1e-12) -> torch.Tensor:
-    """One level's diagonal and off tiles (kernel K8 on the card); see
-    tile_factor_plain."""
+    """One level's diagonal and off tiles (kernel K8 on the card, K8-f32
+    on f32 storage); see tile_factor_plain."""
     if st.is_cuda:
         return _tile_factor_kernel(st, lv, reg, canceltol)
     return tile_factor_plain(st, lv, reg, canceltol)
@@ -353,18 +367,21 @@ def tile_update_plain(st: torch.Tensor, lv: dict) -> None:
 
 
 def _tile_update_kernel(st: torch.Tensor, lv: dict) -> None:
-    kernels.check_cuda(st, dtype=torch.float64)
+    sfx = _suffix(st)
+    kernels.check_cuda(st)
     kernels.check_cuda(lv["pair_dst"], lv["pair_ptr"], lv["pair_a"],
                        lv["pair_b"], dtype=torch.int64)
-    kernels.launch("tile_update.cu", "tile_update_launch", st.data_ptr(),
-                   lv["pair_dst"].data_ptr(), lv["pair_ptr"].data_ptr(),
-                   lv["pair_a"].data_ptr(), lv["pair_b"].data_ptr(),
-                   lv["pair_dst"].numel(), st.shape[-1])
-    kernels.LAUNCHES["tile_update"] += 1
+    kernels.launch("tile_update.cu", f"tile_update{sfx}_launch",
+                   st.data_ptr(), lv["pair_dst"].data_ptr(),
+                   lv["pair_ptr"].data_ptr(), lv["pair_a"].data_ptr(),
+                   lv["pair_b"].data_ptr(), lv["pair_dst"].numel(),
+                   st.shape[-1])
+    kernels.LAUNCHES["tile_update" + sfx] += 1
 
 
 def tile_update(st: torch.Tensor, lv: dict) -> None:
-    """One level's trailing update (kernel K9 on the card)."""
+    """One level's trailing update (kernel K9 on the card, K9-f32 on f32
+    storage)."""
     if not lv["pair_a"].numel():
         return
     if st.is_cuda:
@@ -419,37 +436,39 @@ _SOLVE_KEYS = ("cols", "dslot", "fs_row", "fs_ptr", "fs_slot", "fs_col",
 
 def _tile_solve_kernel(L: torch.Tensor, rhs: torch.Tensor,
                        levels) -> torch.Tensor:
-    kernels.check_cuda(L, rhs, dtype=torch.float64)
+    sfx = _suffix(L)
+    kernels.check_cuda(L, rhs, dtype=L.dtype)
     for lv in levels:
         kernels.check_cuda(*(lv[k] for k in _SOLVE_KEYS), dtype=torch.int64)
     B = L.shape[-1]
+    name = "tile_solve" + sfx
     y = rhs.reshape(-1, B).clone()
     for lv in levels:
         nc = lv["cols"].numel()
-        kernels.launch("tile_solve.cu", "tile_fwd_diag_launch", L.data_ptr(),
-                       y.data_ptr(), lv["dslot"].data_ptr(),
+        kernels.launch("tile_solve.cu", f"tile_fwd_diag{sfx}_launch",
+                       L.data_ptr(), y.data_ptr(), lv["dslot"].data_ptr(),
                        lv["cols"].data_ptr(), nc, B)
-        kernels.LAUNCHES["tile_solve"] += 1
+        kernels.LAUNCHES[name] += 1
         nr = lv["fs_row"].numel()
         if nr:
-            kernels.launch("tile_solve.cu", "tile_fwd_scatter_launch",
+            kernels.launch("tile_solve.cu", f"tile_fwd_scatter{sfx}_launch",
                            L.data_ptr(), y.data_ptr(), lv["fs_row"].data_ptr(),
                            lv["fs_ptr"].data_ptr(), lv["fs_slot"].data_ptr(),
                            lv["fs_col"].data_ptr(), nr, B)
-            kernels.LAUNCHES["tile_solve"] += 1
+            kernels.LAUNCHES[name] += 1
     for lv in reversed(levels):
-        kernels.launch("tile_solve.cu", "tile_bwd_launch", L.data_ptr(),
+        kernels.launch("tile_solve.cu", f"tile_bwd{sfx}_launch", L.data_ptr(),
                        y.data_ptr(), lv["dslot"].data_ptr(),
                        lv["cols"].data_ptr(), lv["off_ptr"].data_ptr(),
                        lv["off_slot"].data_ptr(), lv["off_row"].data_ptr(),
                        lv["cols"].numel(), B)
-        kernels.LAUNCHES["tile_solve"] += 1
+        kernels.LAUNCHES[name] += 1
     return y.reshape(-1)
 
 
 def tile_solve(L: torch.Tensor, rhs: torch.Tensor, levels) -> torch.Tensor:
-    """L L' x = rhs with the tile factor (kernel K10 on the card); see
-    tile_solve_plain."""
+    """L L' x = rhs with the tile factor (kernel K10 on the card, K10-f32
+    for an f32 factor); see tile_solve_plain."""
     if L.is_cuda:
         return _tile_solve_kernel(L, rhs, levels)
     return tile_solve_plain(L, rhs, levels)

@@ -19,7 +19,12 @@ deninfac.m/dpr1fact.c, wrapPcg.m/loopPcg.m):
   Woodbury direct solve (K10 per tile solve) as the preconditioner of PCG
   against the matrix-free A H A'.
 
-Only the factor's ok flag crosses to the host in prepare().
+Everything runs in the operator's dtype: f64, or f32 in the precision
+ladder's f32 and hybrid phases (make_sparse_lq_op(dtype=float32)), where
+the group build, the capacitance factor and the tile kernels take their
+f32 builds (K2-f32, K3-f32, K8-f32 to K10-f32) and PCG runs in f32 with
+the reference's tolerances.  Only the factor's ok flag crosses to the host
+in prepare().
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from . import nt, schur, sparse_chol
+from . import fp, nt, schur, sparse_chol
 from .chol import LdlFactor, ldl_masked, ldl_solve
 from .cones import Layout
 from .params import Pars
@@ -622,14 +627,18 @@ def plan_sparse_lq(At: sp.spmatrix, c: np.ndarray, layout: Layout,
     return arrays, meta
 
 
-def make_sparse_lq_op(arrays: dict, meta: dict, device="cuda") -> SparseLqOp:
-    """Put a host plan's arrays on `device`: floats as f64, indices as
-    int64, the tile factor's per-level maps with them."""
+def make_sparse_lq_op(arrays: dict, meta: dict, dtype=torch.float64,
+                      device="cuda") -> SparseLqOp:
+    """Put a host plan's arrays on `device`: the float fields in `dtype`
+    (f64, or f32 for the precision ladder's f32 and hybrid phases; the
+    reference's make_sparse_lq_op), indices as int64, the tile factor's
+    per-level maps with them."""
     float_fields = {"a_val", "pr_prod", "u_val", "ud_base", "udu_val",
                     "sg_v", "sp_val"}
+    fdt = fp.torch_dtype(dtype)
 
     def put(key, a):
-        dt = torch.float64 if key in float_fields else torch.int64
+        dt = fdt if key in float_fields else torch.int64
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                device=device)
 

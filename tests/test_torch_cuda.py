@@ -649,6 +649,91 @@ def test_arch0_witness(cuda, monkeypatch):
     assert close("det_1", "cpu", 1e-8)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(3000, 128), (600, 32)])
+def test_tile_kernels_f32(cuda, n, B):
+    """K8-f32 and K9-f32 level by level against the plain f32 versions
+    from the same f32 storage (rungs equal; factor within 1e-4 of max|L|:
+    cuSOLVER's f32 factor rounds in another order on an A A' + (n/2) I of
+    condition < 1e2; update within 2 (B + P + 1) (eps32 (|D| + sum |A|
+    |B|') + tiny32), the underflow term because the fill's products reach
+    the f32 subnormal range, which the plain GEMM may flush to zero), then
+    K10-f32 on the kernels' factor (within 1e-4 of max|x|);
+    every launch counted under the f32 names, none under the f64 ones."""
+    M = ada_matrix(n, n)
+    f = sparse_chol.SparseCholesky(M, B=B, device=cuda)
+    st = f.storage(M).to(torch.float32)
+    eps32 = float(np.finfo(np.float32).eps)
+    tiny32 = float(np.finfo(np.float32).tiny)
+    before = dict(kernels.LAUNCHES)
+    for lv in f.levels:
+        ref = st.clone()
+        rk = sparse_chol.tile_factor(st, lv, 0.0)
+        assert torch.equal(rk, sparse_chol.tile_factor_plain(ref, lv, 0.0))
+        slots = torch.cat([lv["dslot"], lv["off_slot"]])
+        assert float((st[slots] - ref[slots]).abs().max()) <= 1e-4 * float(
+            ref[slots].abs().max())
+        if not lv["pair_a"].numel():
+            continue
+        dst, ptr = lv["pair_dst"], lv["pair_ptr"]
+        didx = torch.repeat_interleave(torch.arange(dst.numel(), device=cuda),
+                                       torch.diff(ptr))
+        bound = st[dst].abs().index_add_(
+            0, didx, st[lv["pair_a"]].abs() @ st[lv["pair_b"]].abs().mT)
+        c = 2.0 * (B + float(torch.diff(ptr).max()) + 1.0)
+        ref = st.clone()
+        sparse_chol.tile_update(st, lv)
+        sparse_chol.tile_update_plain(ref, lv)
+        diff = (st[dst] - ref[dst]).abs()
+        excess = diff - c * (eps32 * bound + tiny32)
+        w = int(torch.argmax(excess))
+        assert bool(torch.all(excess <= 0)), {
+            "diff": float(diff.flatten()[w]),
+            "bound": float(bound.flatten()[w]), "at": w,
+            "kernel": float(st[dst].flatten()[w]),
+            "plain": float(ref[dst].flatten()[w]),
+            "n_over": int((excess > 0).sum()), "finite": bool(
+                torch.isfinite(st[dst]).all() & torch.isfinite(ref[dst]).all())}
+    rhs = torch.as_tensor(np.random.default_rng(n).standard_normal(f.plan.n),
+                          dtype=torch.float32, device=cuda)
+    xk = sparse_chol.tile_solve(st, rhs, f.levels)
+    xp = sparse_chol.tile_solve_plain(st, rhs, f.levels)
+    assert xk.dtype == torch.float32
+    assert float((xk - xp).abs().max()) <= 1e-4 * float(xp.abs().max())
+    delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+    assert all(delta[k + "_f32"] > 0 for k in ("tile_factor", "tile_update",
+                                                "tile_solve"))
+    assert delta["tile_factor"] == delta["tile_update"] == \
+        delta["tile_solve"] == 0
+
+
+@pytest.mark.cuda
+def test_tile_factor_escalation_rungs_f32(cuda):
+    """The three 128 x 128 rung tiles in f32 storage, with the reference's
+    canceltol (1e-12, rounded to f32; the lift's + 1e-300 rounds to 0):
+    K8-f32 takes the plain version's rungs 0, 1, 2; rungs 0-1 agree to
+    1e-5 of max|L|, the rung-2 diagonal to 1 ulp."""
+    B = 128
+    rng = np.random.default_rng(0)
+    G = rng.standard_normal((B, B))
+    D = G @ G.T / B + np.eye(B)
+    first, both = D.copy(), D.copy()
+    first[3, 3] = -0.5
+    both[5, 4] = both[4, 5] = 50.0
+    st = torch.as_tensor(np.stack([np.tril(a) for a in (D, first, both)]),
+                         dtype=torch.float32, device=cuda)
+    ref = st.clone()
+    lv = {"dslot": torch.arange(3, device=cuda),
+          "off_slot": torch.zeros(0, dtype=torch.int64, device=cuda),
+          "off_dslot": torch.zeros(0, dtype=torch.int64, device=cuda)}
+    assert sparse_chol.tile_factor(st, lv, 0.0).tolist() == [0, 1, 2]
+    assert sparse_chol.tile_factor_plain(ref, lv, 0.0).tolist() == [0, 1, 2]
+    assert float((st[:2] - ref[:2]).abs().max()) <= 1e-5 * float(
+        ref[:2].abs().max())
+    np.testing.assert_array_max_ulp(st[2].cpu().numpy(), ref[2].cpu().numpy(),
+                                    maxulp=1)
+
+
 def dense_column_lp():
     """test_dense_columns_keep_pattern_sparse_and_match's LP (m = 900, three
     dense columns), from numpy.random.default_rng(12345) as the suite's
@@ -657,15 +742,16 @@ def dense_column_lp():
                             dense_cols=3)
 
 
-def solve_lp(device, sparse=1):
+def solve_lp(device, sparse=1, **pars):
     A, b, c, K = dense_column_lp()
     before = dict(kernels.LAUNCHES)
     x, y, info = st.sedumi(A, b, c, K, {"fid": 0, "sparse": sparse,
-                                        "optstep": 0}, device=device)
+                                        "optstep": 0, **pars}, device=device)
     return {"cx": float(c @ x), "by": float(b @ y), "iter": int(info["iter"]),
             "engine": info["lin_engine"], "err": max(info["err"]),
             "pinf": int(info["pinf"]), "dinf": int(info["dinf"]),
             "numerr": int(info["numerr"]),
+            "phases": {k: v["iters"] for k, v in info["phases"].items()},
             "launches": {k: kernels.LAUNCHES[k] - before[k]
                          for k in kernels.LAUNCHES},
             "x": x, "y": y}
@@ -721,3 +807,27 @@ def test_sparse_witness(cuda, monkeypatch):
         runs["cpu"]["cx"])
     cd = runs["dense"]["cx"]
     assert abs(runs["card"]["cx"] - cd) <= 1e-6 * (1.0 + abs(cd))
+
+
+@pytest.mark.cuda
+def test_mixed_sparse_solve_card_matches_cpu(cuda):
+    """The dense-column LP with pars.dtype='mixed' through the sparse
+    engine on that machine's CPU and on the card: the same phase sequence
+    on the sparse engine, the reference's gate on both, K8-f32 to K10-f32
+    and K3-f32 launched on the card, and c'x within 1e-7 relative."""
+    runs = {"cpu": solve_lp("cpu", dtype="mixed"),
+            "card": solve_lp(cuda, dtype="mixed")}
+    print(json.dumps({"mixed_sparse": {k: {f: v for f, v in r.items()
+                                           if f not in ("x", "y")}
+                                       for k, r in runs.items()}}),
+          flush=True)
+    for r in runs.values():
+        assert r["engine"] == "sparse"
+        assert r["pinf"] == 0 and r["dinf"] == 0 and r["err"] < 1e-7
+    assert list(runs["card"]["phases"]) == list(runs["cpu"]["phases"])
+    assert "f32" in runs["card"]["phases"]
+    for k in ("tile_factor_f32", "tile_update_f32", "tile_solve_f32",
+              "ldl_masked_f32"):
+        assert runs["card"]["launches"][k] > 0, k
+    assert abs(runs["card"]["cx"] - runs["cpu"]["cx"]) <= 1e-7 * abs(
+        runs["cpu"]["cx"])

@@ -23,6 +23,11 @@ reason:
 * Whole mixed solve: the reference's phase sequence, pinf, dinf, numerr,
   and c'x within 1e-6 (1 + |c'x|) of the reference's and of the f64
   solve (the reference's own e2e gate, tests/test_hybrid.py).
+* quantum's 'mixed' host64 count: the port started from the reference's
+  escalation iterate takes the reference's count within 2; the
+  reference's own count moves by more than 20 under one-ulp f32 noise on
+  that iterate, the witness that the free-running counts (146 against
+  64) differ by f32 rounding.
 """
 
 import jax.numpy as jnp
@@ -407,6 +412,84 @@ def test_mixed_ladder_e2e_matches_reference():
     cxm = float(c @ xm)
     for ref in (float(np.real(np.vdot(c, xj))), float(c @ x64)):
         assert abs(cxm - ref) <= 1e-6 * (1.0 + abs(ref))
+
+
+def test_quantum_mixed_host64_count_is_noise_limited(monkeypatch):
+    """Why quantum's 'mixed' host64 phase takes 146 iterations in the port
+    and 64 in the reference: the count is set by f32 rounding in the
+    iterate the f32 phase hands over, not by a fault.
+
+    * The port's host64 phase, started from the reference's escalation
+      iterate (the state its f64 recenter receives), takes the
+      reference's count (within 2) and lands at its c'x to 1e-12.
+    * The reference's own count swings when that iterate moves by one f32
+      ulp (relative 2^-24 noise, three draws): on this host 146, 9 and 4
+      iterations against 64.
+    (Each f32 step of the port, fed the reference's iterate, differs from
+    the reference's next iterate by no more than the reference's own step
+    moves under the same one-ulp noise.)"""
+    import jax
+    import sedumi_tpu
+    from sedumi_tpu_torch.examples import load_example
+
+    ex = load_example("quantum")
+    pars = {"fid": 0, "dtype": "mixed"}
+    make_recenter = jipm.make_recenter
+    entering = []
+
+    def run_reference(noise_seed=None):
+        rng = np.random.default_rng(noise_seed)
+
+        def wrapped(layout, dtype=jnp.float64):
+            fn = make_recenter(layout, dtype)
+
+            def rec(s):
+                if np.dtype(dtype) == np.float64:
+                    if noise_seed is None:
+                        entering.append(jax.tree_util.tree_map(np.asarray,
+                                                               s))
+                    else:
+                        s = jax.tree_util.tree_map(lambda a: jnp.asarray(
+                            np.asarray(a) * (1.0 + 2.0**-24 * rng
+                                             .standard_normal(np.shape(a)))),
+                            s)
+                return fn(s)
+            return rec
+
+        with monkeypatch.context() as mp:
+            mp.setattr(jipm, "make_recenter", wrapped)
+            x, _, info = sedumi_tpu.sedumi(ex.At, ex.b, ex.c, ex.K, pars)
+        return x, {k: v["iters"] for k, v in info["phases"].items()}
+
+    xj, pj = run_reference()
+    moved = [run_reference(seed)[1]["host64"] for seed in (1, 2, 3)]
+
+    make_t = tipm.make_recenter
+
+    def substituted(layout, dtype=F64):
+        fn = make_t(layout, dtype)
+        s0 = entering[0]
+
+        def rec(s):
+            if dtype == F64 and not rec.done:
+                rec.done = True
+                s = convert.state_from_numpy(layout, *_np_state(s0),
+                                             device="cpu")
+            return fn(s)
+        rec.done = False
+        return rec
+
+    monkeypatch.setattr(tipm, "make_recenter", substituted)
+    xt, _, it = pt.sedumi(ex.At, ex.b, ex.c, ex.K, pars, device="cpu")
+    pt_ = {k: v["iters"] for k, v in it["phases"].items()}
+    print(f"quantum 'mixed': reference {pj}; reference host64 with its "
+          f"entering iterate moved by one f32 ulp {moved}; port from the "
+          f"reference's iterate {pt_}")
+    assert list(pt_) == list(pj) == ["f32", "host64"]
+    assert abs(pt_["host64"] - pj["host64"]) <= 2
+    cxj = float(np.real(np.vdot(ex.c, xj)))
+    assert abs(float(np.real(np.vdot(ex.c, xt))) - cxj) <= 1e-12 * abs(cxj)
+    assert max(abs(n - pj["host64"]) for n in moved) > 20, moved
 
 
 def test_float32_mode_lands_in_f32():

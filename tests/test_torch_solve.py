@@ -117,13 +117,11 @@ def test_checkpoint_resume(tmp_path):
 
 @pytest.mark.parametrize("pars,item", [
     ({"debug": 1}, "item 11"), ({"mesh_shape": {"blocks": 2}}, "item 10"),
-    ({"dtype": "mixed", "sparse": 1}, "item 9"),
-    ({"dtype": "float32", "sparse": 1}, "item 9"),
     ({"profile": 1}, "item 11")])
 def test_unported_routes_raise(pars, item):
-    """Routes the port does not cover raise instead of falling back; the
-    precision ladder on the sparse engine needs f32 builds of the tile
-    kernels (ROADMAP queue A item 9b) and must not run the dense engine."""
+    """Routes the port does not cover raise instead of falling back.  (The
+    precision ladder on the sparse engine is ported: its solves are held in
+    tests/test_torch_sparse_precision.py.)"""
     At, b, c, K = _problem()
     with pytest.raises(NotImplementedError, match=item):
         pt.sedumi(At, b, c, K, {"fid": 0, **pars}, device="cpu")
