@@ -10,9 +10,13 @@
    them, with the tolerance stated (K1, K2, K6, K11 and the f32 K1, K2
    within error bounds; K3, K4, K5, K7 and the f32 K3 bit for bit; K12
    and K13 within 4 n eps ||A|| in the same eigenvalue slots, with their
-   residual and orthogonality against the plain version's); times both,
-   and the card's least time (bound) for the work.  K8-K10 and their f32
-   builds follow the sparse paths (4., 5.), on their plans.
+   residual and orthogonality against the plain version's), and the
+   Schur-panel kernels of the mesh path, K14 (a block column of the
+   distributed Cholesky) and K15 (the distributed substitution's three
+   steps), at OH's and nb's panel shapes within 1e-12 of max|L| and of
+   max|x|, with a non-PD block giving NaN; times each, and the card's
+   least time (bound) for the work.  K8-K10 and their f32 builds follow
+   the sparse paths (4., 5.), on their plans.
 2. Dense path: sedumi_tpu_torch.sedumi() on all six bundled examples at
    full size (quantum, nb, arch0, control07, trto3, OH), plus nb with one
    redundant all-zero constraint (its Schur complement is singular, so
@@ -25,7 +29,8 @@
    library eigensolver, as the reference's host phases do.
 3. Mixed-ladder path: pars.dtype='mixed' (f32 -> hybrid -> host64 ->
    dd64) on quantum, nb, arch0, control07, nb+zero-row, trto3, a dense
-   SOCP from the reference's feasible_problem generator (copied below),
+   SOCP from the reference's feasible_problem generator (the port's
+   copy, sedumi_tpu_torch.generators),
    whose hybrid phase takes the double-float operator, and the
    reference's e2e ladder instance: K1-f32 must launch in every bundled
    example, K2-f32 on arch0, K3-f32 on nb+zero-row, K11 on the SOCP, and
@@ -53,13 +58,23 @@
    Then K8-K10 and K2's group layout are held against their plain twins
    on the plans the f64 solves built (LP 20k and SDP 5k), and K8-f32 to
    K10-f32 on f32 storage of the LP 20k and SDP 1200 plans.
-   Launch counts are zeroed just before each path and read just after;
-   every kernel must have launched on the paths, but for the builds no
-   card solve reaches (OFF_PATH: the f64 and complex Jacobi), which the
-   kernel phase holds alone.
-6. Prints {"kernels": [...]}, the card's name and power limit, and as the
-   last line {"ok": true, "device": {...}}.  Any failure exits non-zero
-   before the last line.  Without a CUDA device it exits 1 at once.
+6. Mesh path (pars.mesh_shape, MESH_SOLVES): OH at full size with
+   {"panels": 2} on two ranks and nb with {"hosts": 2, "panels": 2} on
+   four, all sharing this card under gloo (parallel.launch.run_spmd).
+   Every rank must return the same solution and launch K14 and K15, and
+   none the dd64 kernels or K3; OH must land within 1e-6 (1 + |c'x|) of
+   path 2's unsharded c'x with pinf = dinf = 0, numerr < 2, nb must pass
+   the reference gate.  Each prints its wall, iterations, launches per
+   rank and the collectives' share of the wall.
+   Launch counts are zeroed just before each path (in every rank for the
+   mesh path) and read just after; every kernel must have launched on the
+   paths, but for the builds no card solve reaches (OFF_PATH: the f64 and
+   complex Jacobi), which the kernel phase holds alone.
+7. Prints the library rows (B5, B11, B9's dd_gemm, B7/B8: times and
+   bounds of the routines left to the library) as one JSON line,
+   {"kernels": [...]}, the card's name and power limit, and as the last
+   line {"ok": true, "device": {...}}.  Any failure exits non-zero before
+   the last line.  Without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -72,6 +87,8 @@ import time
 
 import numpy as np
 import torch
+
+from sedumi_tpu_torch.generators import feasible_problem
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the f64
 # tensor-core rate (the highest f64 rate the card has) and the f32 rate
@@ -964,6 +981,194 @@ def check_jacobi(dev, gen):
 
 
 # --------------------------------------------------------------------------
+# the Schur-panel kernels of the mesh path: K14 (one block column of the
+# distributed Cholesky) and K15 (the distributed substitution's steps)
+# --------------------------------------------------------------------------
+
+# (bs, mp): OH with {"panels": 2} (m = 948, n = 2: bs 128, mp 1024, nb 8)
+# and nb with {"hosts": 2, "panels": 2} (m = 123: bs 32, mp 128, nb 4)
+PANEL_SHAPES = ((128, 1024), (32, 128))
+PANEL_TOL = 1e-12        # of max|L| (K14) and of max|x| (K15)
+
+
+def panel_spd(mp: int, gen, dev) -> torch.Tensor:
+    """A Jacobi-scaled SPD matrix of cond ~1e6, as the panel engine
+    factors (unit diagonal)."""
+    M = spd_with_cond(mp, 1e6, gen)
+    d = torch.sqrt(torch.diagonal(M))
+    return (M / (d[:, None] * d[None, :])).to(dev)
+
+
+def panel_columns(M: torch.Tensor, bs: int):
+    """Every block column's gathered C [nb, bs, bs] (natural order) as
+    dist_cholesky hands it to K14: the trailing-updated column j below
+    the diagonal, the finished factor above; and L."""
+    L = torch.linalg.cholesky(M).contiguous()
+    mp = M.shape[0]
+    nb = mp // bs
+    out = []
+    for j in range(nb):
+        cols = slice(j * bs, (j + 1) * bs)
+        S = M[:, cols] - L[:, :j * bs] @ L[cols, :j * bs].T
+        S[:j * bs] = L[:j * bs, cols]
+        out.append(S.reshape(nb, bs, bs).contiguous())
+    return out, L
+
+
+def panel_chain(L, b, bs: int, n: int, fwd, contrib, solve):
+    """Both substitutions as _dist_trisolve runs them over n contiguous
+    panels, in one process: fwd/contrib/solve are K15's steps (kernel or
+    plain).  Returns x with L L' x = b."""
+    mp = L.shape[0]
+    nb = mp // bs
+    nb_loc = nb // n
+    x = torch.zeros(mp, dtype=L.dtype, device=L.device)
+    for j in range(nb):
+        x[j * bs:(j + 1) * bs] = fwd(L[j * bs:(j + 1) * bs], x,
+                                     b[j * bs:(j + 1) * bs], j)
+    y, x = x, torch.zeros_like(x)
+    for j in range(nb - 1, -1, -1):
+        c = sum(contrib(L[p * nb_loc * bs:(p + 1) * nb_loc * bs], x, bs,
+                        p * nb_loc, j) for p in range(n))
+        x[j * bs:(j + 1) * bs] = solve(
+            L[j * bs:(j + 1) * bs, j * bs:(j + 1) * bs].contiguous(),
+            y[j * bs:(j + 1) * bs], c)
+    return x
+
+
+def panel_case(bs: int, mp: int, gen, dev) -> dict:
+    """K14 on every block column and a non-PD diagonal block, and K15 in
+    the full two-panel substitution and step by step, against their plain
+    versions; the errors and the launch deltas."""
+    from sedumi_tpu_torch import kernels
+    from sedumi_tpu_torch.parallel import panels as pn
+
+    M = panel_spd(mp, gen, dev)
+    Cs, L = panel_columns(M, bs)
+    nb = mp // bs
+    lmax = float(L.abs().max())
+    n0 = dict(kernels.LAUNCHES)
+    err_l = fac = 0.0
+    for j, C in enumerate(Cs):
+        got = pn.panel_chol_step(C, j)
+        want = pn.panel_chol_plain(C, j)
+        err_l = max(err_l, float((got - want).abs().max()))
+        # and against the library's factor (cond 1e6: ~1e-10 apart)
+        fac = max(fac, float((got[j:].reshape(-1, bs)
+                              - L[j * bs:, j * bs:(j + 1) * bs])
+                             .abs().max()))
+    bad = Cs[nb // 2].clone()
+    bad[nb // 2, 1, 1] = -1.0
+    got = pn.panel_chol_step(bad, nb // 2)
+    want = pn.panel_chol_plain(bad, nb // 2)
+    nan_ok = bool(torch.isnan(got[nb // 2:]).all()
+                  and torch.isnan(want[nb // 2:]).all()
+                  and (got[:nb // 2] == 0).all())
+    b = torch.randn(mp, generator=gen, dtype=torch.float64).to(dev)
+    x_k = panel_chain(L, b, bs, 2, pn.trisolve_fwd_step,
+                      pn.trisolve_bwd_contrib, pn.trisolve_bwd_solve)
+    x_p = panel_chain(L, b, bs, 2, pn.trisolve_fwd_plain,
+                      pn.trisolve_bwd_contrib_plain,
+                      pn.trisolve_bwd_solve_plain)
+    torch.cuda.synchronize()
+    resid = float((M @ x_k - b).abs().max() / b.abs().max())
+    counts = {k: kernels.LAUNCHES[k] - n0[k] for k in kernels.LAUNCHES
+              if kernels.LAUNCHES[k] != n0[k]}
+    err_x = float((x_k - x_p).abs().max())
+    return dict(err_l=err_l, rel_l=err_l / lmax, fac=fac / lmax, err_x=err_x,
+                rel_x=err_x / float(x_p.abs().max()), nan_ok=nan_ok,
+                resid=resid, counts=counts, M=M, L=L, Cs=Cs, b=b, x=x_k)
+
+
+def check_panel_kernels(dev, gen):
+    """K14 and K15 against their plain versions at the mesh path's shapes
+    (PANEL_SHAPES), then timed at OH's."""
+    from sedumi_tpu_torch.parallel import panels as pn
+
+    cases = {}
+    for bs, mp in PANEL_SHAPES:
+        c = panel_case(bs, mp, gen, dev)
+        nb = mp // bs
+        print(f"K14/K15 bs={bs} mp={mp}: K14 {c['rel_l']:.3e} of max|L| "
+              f"from its plain version ({c['fac']:.3e} from "
+              f"torch.linalg.cholesky), K15 solve {c['rel_x']:.3e} of "
+              f"max|x|, residual {c['resid']:.3e}, non-PD block NaN: "
+              f"{c['nan_ok']}, launches {c['counts']}", flush=True)
+        want = {"dist_panel_chol": nb + 1, "dist_trisolve_fwd": nb,
+                "dist_trisolve_bwd_contrib": 2 * nb,
+                "dist_trisolve_bwd_solve": nb}
+        if c["counts"] != want:
+            fail(f"K14/K15 launched {c['counts']}, expected {want}")
+        if not (c["rel_l"] <= PANEL_TOL and c["rel_x"] <= PANEL_TOL
+                and c["fac"] <= 1e-8 and c["resid"] <= 1e-8
+                and c["nan_ok"]):
+            fail(f"K14/K15 disagree with their plain versions at bs={bs}")
+        cases[bs] = c
+    # times at OH's shape: K14 on column 0 (the most blocks to scale),
+    # K15's forward step on the last block row (the longest row product),
+    # the backward contribution of panel 1 to column 0, one back solve
+    bs, mp = PANEL_SHAPES[0]
+    c = cases[bs]
+    nb = mp // bs
+    C0 = c["Cs"][0]
+    L, x, b = c["L"], c["x"], c["b"]
+    row = L[(nb - 1) * bs:].contiguous()
+    bj = b[(nb - 1) * bs:].contiguous()
+    nb_loc = nb // 2
+    L3 = L[nb_loc * bs:].contiguous()
+    Ljj = L[:bs, :bs].contiguous()
+    b0, c0 = b[:bs].contiguous(), x[:bs].contiguous()
+    k0 = (nb - 1) * bs
+    rows = []
+    spec = [
+        ("dist_panel_chol", "sedumi_tpu_torch/csrc/panel_chol.cu",
+         "sedumi_tpu/parallel/panels.py:47",
+         lambda: pn.panel_chol_step(C0, 0),
+         lambda: pn.panel_chol_plain(C0, 0),
+         lambda: torch.linalg.cholesky(c["M"]),
+         # C read and Lcol written; chol + inverse bs^3/3 each, the
+         # (nb - 1) off blocks 2 bs^3 each
+         (16.0 * nb * bs * bs, 2 * bs**3 / 3 + 2.0 * (nb - 1) * bs**3)),
+        ("dist_trisolve_fwd", "sedumi_tpu_torch/csrc/panel_solve.cu",
+         "sedumi_tpu/parallel/panels.py:117",
+         lambda: pn.trisolve_fwd_step(row, x, bj, nb - 1),
+         lambda: pn.trisolve_fwd_plain(row, x, bj, nb - 1),
+         lambda: torch.linalg.solve_triangular(
+             row[:, k0:], bj[:, None], upper=False),
+         # the row's first (nb - 1) bs + bs columns, x's first k0, b, xj
+         (8.0 * (bs * (k0 + bs) + k0 + 2 * bs), 2.0 * bs * k0 + bs * bs)),
+        ("dist_trisolve_bwd_contrib", "sedumi_tpu_torch/csrc/panel_solve.cu",
+         "sedumi_tpu/parallel/panels.py:117",
+         lambda: pn.trisolve_bwd_contrib(L3, x, bs, nb_loc, 0),
+         lambda: pn.trisolve_bwd_contrib_plain(L3, x, bs, nb_loc, 0),
+         lambda: x[nb_loc * bs:] @ L3[:, :bs],
+         # the panel's column block 0 and its x segment, contrib
+         (8.0 * (nb_loc * bs * bs + nb_loc * bs + bs),
+          2.0 * nb_loc * bs * bs)),
+        ("dist_trisolve_bwd_solve", "sedumi_tpu_torch/csrc/panel_solve.cu",
+         "sedumi_tpu/parallel/panels.py:117",
+         lambda: pn.trisolve_bwd_solve(Ljj, b0, c0),
+         lambda: pn.trisolve_bwd_solve_plain(Ljj, b0, c0),
+         lambda: torch.linalg.solve_triangular(Ljj.T, b0[:, None],
+                                               upper=True),
+         (8.0 * (bs * bs + 3 * bs), 1.0 * bs * bs)),
+    ]
+    for name, src, rep, kern, plain, lib, (nbytes, flops) in spec:
+        ms = cuda_ms(kern, 50)
+        pms = cuda_ms(plain, 20)
+        lms = cuda_ms(lib, 50)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        key = "err_l" if name == "dist_panel_chol" else "err_x"
+        print(f"{name} bs={bs} mp={mp}: {ms:.4g} ms (plain {pms:.4g}, "
+              f"library {lms:.4g}, bound {b_ms:.3g} by {b_by})", flush=True)
+        rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                         max_abs_err=max(cc[key] for cc in cases.values()),
+                         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lms))
+    return rows
+
+
+# --------------------------------------------------------------------------
 # sparse-engine kernels (K8-K10, and K2's group layout), on the plans the
 # sparse path built
 # --------------------------------------------------------------------------
@@ -972,6 +1177,14 @@ def check_jacobi(dev, gen):
 def interior_scaling(meta, dev, rng):
     """NT scaling at a random interior point of a plan's cone layout."""
     from sedumi_tpu_torch import nt
+
+    return nt.compute_scaling(interior_point(meta, dev, rng),
+                              interior_point(meta, dev, rng))
+
+
+def interior_point(meta, dev, rng):
+    """A random interior point of a cone layout (meta: nl, q_shapes,
+    s_shapes)."""
     from sedumi_tpu_torch.structs import ConeVec
 
     def t(a):
@@ -988,7 +1201,7 @@ def interior_scaling(meta, dev, rng):
         return ConeVec(l=t(rng.random(meta["nl"]) + 0.5),
                        q=tuple(map(t, q)), s=tuple(map(t, s)))
 
-    return nt.compute_scaling(point(), point())
+    return point()
 
 
 def tile_case(plan, dev, rng, dtype=torch.float64):
@@ -1228,6 +1441,87 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
     return [row8, row9, row10]
 
 
+def check_library_rows(dev, gen, rng, plans):
+    """Times of the routines the port leaves to the library or to plain
+    torch ops, each at one main-path shape, with its bound: B5
+    (chol.chol_factor + chol_solve at OH's Schur order 948), B11
+    (TileSchurEngine.prepare and solve on the LP 20k plan; the bound
+    counts one pass over the tile storage and the factor's flops), B9's
+    library part (ddlinalg.dd_gemm of control07's PSD congruence, B
+    667 x 16384 with its transpose) and B7/B8 (nt.compute_scaling,
+    wregion.prod_spectrum and nt.maxstep_pair on nb's cone layout).
+    Printed as one JSON line."""
+    from sedumi_tpu_torch import chol, nt
+    from sedumi_tpu_torch import ddlinalg as dd
+    from sedumi_tpu_torch.examples import load_example
+    from sedumi_tpu_torch.params import Pars
+    from sedumi_tpu_torch.sparse_engine import TileSchurEngine, \
+        make_sparse_lq_op
+    from sedumi_tpu_torch.transform import pretransfo
+    from sedumi_tpu_torch.wregion import prod_spectrum
+
+    rows = []
+    m = 948
+    M = spd_with_cond(m, 1e8, gen).to(dev)
+    rhs = torch.randn(m, generator=gen, dtype=torch.float64).to(dev)
+    f = chol.chol_factor(M, 0.0)
+    rows.append(dict(name="B5 chol_factor + chol_solve, m=948",
+                     ms=cuda_ms(lambda: chol.chol_solve(
+                         chol.chol_factor(M, 0.0), rhs), 20),
+                     factor_ms=cuda_ms(lambda: chol.chol_factor(M, 0.0), 20),
+                     solve_ms=cuda_ms(lambda: chol.chol_solve(f, rhs), 20),
+                     bound=bound_ms(8.0 * (2 * m * m + 2 * m),
+                                    m**3 / 3.0 + 2.0 * m * m)))
+    arrays, meta = plans["lp20k"]
+    aop = make_sparse_lq_op(arrays, meta, device=dev)
+    S = interior_scaling(meta, dev, rng)
+    eng = TileSchurEngine(Pars.make({}))
+    ctx = eng.prepare(aop, S, 0.0)[0]
+    r20 = torch.randn(aop.m, generator=gen, dtype=torch.float64).to(dev)
+    B = meta["B"]
+    levels = aop.levels
+    ntiles = sum(v["dslot"].numel() + v["off_slot"].numel() for v in levels)
+    flops = sum(v["dslot"].numel() * B**3 / 3.0 + v["off_slot"].numel()
+                * B**3 + 2.0 * B**3 * v["pair_a"].numel() for v in levels)
+    rows.append(dict(name="B11 TileSchurEngine.prepare, lp20k",
+                     ms=cuda_ms(lambda: eng.prepare(aop, S, 0.0), 5),
+                     bound=bound_ms(16.0 * B * B * ntiles, flops)))
+    rows.append(dict(name="B11 TileSchurEngine.solve, lp20k",
+                     ms=cuda_ms(lambda: eng.solve(ctx, r20), 5),
+                     bound=bound_ms(8.0 * B * B * ntiles,
+                                    2.0 * B * B * ntiles)))
+    Bh = torch.randn(667, 16384, generator=gen, dtype=torch.float64).to(dev)
+    Bl = Bh * 2.0**-54
+    nterms = 1 + len(dd._ORDER) + 2     # the slice products, 2 cross terms
+    rows.append(dict(name="B9 dd_gemm B B' (control07's congruence, "
+                          "667 x 16384)",
+                     ms=cuda_ms(lambda: dd.dd_gemm(Bh, Bl, Bh.T, Bl.T), 5),
+                     bound=bound_ms(16.0 * (667 * 16384 + 667 * 667),
+                                    2.0 * nterms * 667 * 667 * 16384)))
+    ex = load_example("nb")
+    lay = pretransfo(ex.At, ex.b, ex.c, ex.K, Pars.make({})).layout
+    cmeta = {"nl": lay.l,
+             "q_shapes": [(b.count, b.dim) for b in lay.q_buckets],
+             "s_shapes": [(b.count, b.dim) for b in lay.s_buckets]}
+    x, z = interior_point(cmeta, dev, rng), interior_point(cmeta, dev, rng)
+    dx, dz = interior_point(cmeta, dev, rng), interior_point(cmeta, dev, rng)
+    Sn = nt.compute_scaling(x, z)
+    lam = nt.lam_as_conevec(Sn)
+    nbytes = 8.0 * 6 * (lay.l + sum(b.count * b.dim for b in lay.q_buckets)
+                        + sum(b.count * b.dim**2 for b in lay.s_buckets))
+    rows.append(dict(name="B7/B8 compute_scaling + prod_spectrum + "
+                          "maxstep_pair, nb",
+                     ms=cuda_ms(lambda: (nt.compute_scaling(x, z),
+                                         prod_spectrum(x, z),
+                                         nt.maxstep_pair(lam, dx, lam, dz)),
+                                20),
+                     bound=bound_ms(nbytes, 0.0)))
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+    print(json.dumps({"library_rows": rows}), flush=True)
+    return rows
+
+
 def check_psd_outer_groups(plan, dev, rng):
     """K2's group build with the sparse engine's output slots (0..G-1) on
     the SDP plan's largest bucket, against the plain version (within
@@ -1301,42 +1595,7 @@ def run_example(ex, gate: bool, pars=None):
     if gate and not (rel <= 1e-6 and info["pinf"] == 0
                      and info["dinf"] == 0 and info["numerr"] < 2):
         fail(f"{label}: reference gate not met")
-    return counts, info
-
-
-def feasible_problem(K: dict, m: int, seed: int, density: float = 0.8):
-    """A copy of the reference's generators.feasible_problem for real LP,
-    Lorentz and PSD cones (the same draws from
-    numpy.random.default_rng(seed)): a strictly feasible pair (x0, y0,
-    z0), A symmetric on each PSD block, b = A x0, c = A'y0 + z0.
-    Returns (At, b, c) with At in the SeDuMi transpose convention."""
-    import scipy.sparse as sp
-
-    rng = np.random.default_rng(seed)
-
-    def interior():
-        parts = [rng.uniform(0.5, 2.0, K.get("l", 0))]
-        for d in K.get("q", []):
-            bar = rng.normal(size=d - 1) * 0.4
-            parts.append(np.concatenate(
-                [[np.linalg.norm(bar) + rng.uniform(0.5, 1.5)], bar]))
-        for d in K.get("s", []):
-            M = rng.normal(size=(d, d))
-            parts.append((M @ M.T + 0.5 * np.eye(d)).reshape(-1, order="F"))
-        return np.concatenate(parts)
-
-    x0, z0 = interior(), interior()
-    y0 = rng.normal(size=m)
-    n = x0.size
-    A = rng.normal(size=(m, n))
-    A *= rng.random((m, n)) < density
-    off = K.get("l", 0) + sum(K.get("q", []))
-    for d in K.get("s", []):
-        blk = A[:, off:off + d * d].reshape(m, d, d)
-        A[:, off:off + d * d] = (0.5 * (blk + blk.transpose(0, 2, 1))
-                                 ).reshape(m, -1)
-        off += d * d
-    return sp.csc_matrix(A.T), A @ x0, A.T @ y0 + z0
+    return counts, dict(info, cx=cx)
 
 
 # The mixed-ladder path's dense SOCP: eight Lorentz cones of order 50 and
@@ -1365,7 +1624,7 @@ def run_mixed_generated(label, problem):
     from sedumi_tpu_torch import kernels
 
     K, m, seed = problem
-    At, b, c = feasible_problem(K, m, seed)
+    At, b, c, _ = feasible_problem(K, m, seed=seed)
     x64, _, _ = st.sedumi(At, b, c, K, {"fid": 0}, device="cuda")
     before = dict(kernels.LAUNCHES)
     torch.cuda.synchronize()
@@ -1585,6 +1844,76 @@ def run_sparse(name, make, pars, gate, plans, tiles=TILE_F64):
     return counts, info
 
 
+# The mesh path (pars.mesh_shape), SPMD on one card: run_spmd spawns one
+# process per mesh position, all on cuda:0 under gloo (NCCL refuses two
+# ranks on one card).  OH at full size with {"panels": 2} (bs 128, mp
+# 1024) and nb with {"hosts": 2, "panels": 2} (formation split over
+# "hosts", panels of bs 32 on "panels").
+# (example, mesh shape, ranks, gate): OH is held to the unsharded solve's
+# c'x, nb to the published optimum
+MESH_SOLVES = [("OH_2Pi_STO-6GN9r12g1T2", {"panels": 2}, 2, "unsharded"),
+               ("nb", {"hosts": 2, "panels": 2}, 4, "published")]
+PANEL_KERNELS = ("dist_panel_chol", "dist_trisolve_fwd",
+                 "dist_trisolve_bwd_contrib", "dist_trisolve_bwd_solve")
+OFF_MESH = ("ldl_masked", "ozaki_split", "dd_accumulate", "dd_gemv",
+            "dd_panel_chol")
+
+
+def run_mesh(name, shape, nprocs, cx_unsharded=None):
+    """One mesh solve on nprocs ranks of this card.  Every rank must
+    return the same x and launch K14 and K15; none may launch the dd64
+    kernels or K3 (dd64 is off under a mesh, and the panel engine has no
+    LDL' fallback).  OH is held to the unsharded solve's c'x within
+    1e-6 (1 + |c'x|) with pinf = dinf = 0, numerr < 2; nb to the
+    reference gate.  Returns the launches summed over the ranks."""
+    from sedumi_tpu_torch.examples import load_example
+    from sedumi_tpu_torch.parallel import entry
+    from sedumi_tpu_torch.parallel.launch import run_spmd
+
+    ex = load_example(name)
+    t0 = time.time()
+    res = run_spmd(entry.rank_sedumi, nprocs,
+                   args=(("example", name), {"fid": 0, "mesh_shape": shape},
+                         "cuda"), device="cuda", timeout_s=600)
+    spawn_wall = time.time() - t0
+    r0 = res[0]
+    info = r0["info"]
+    rel = max(abs(r0["cx"] - ex.optval), abs(r0["by"] - ex.optval)) \
+        / abs(ex.optval)
+    counts = {k: sum(r["launches"].get(k, 0) for r in res)
+              for k in set().union(*(r["launches"] for r in res))}
+    share = [r["comm_s"] / r["wall"] for r in res]
+    print(f"{name} {json.dumps(shape)} on {nprocs} ranks: "
+          f"iter={info['iter']} cx={r0['cx']!r} rel={rel:.3e} "
+          f"pinf={info['pinf']} dinf={info['dinf']} "
+          f"numerr={info['numerr']} wall={r0['wall']:.2f}s "
+          f"(spawn to results {spawn_wall:.2f}s) phases="
+          f"{json.dumps(r0['phases'])} phase walls per rank "
+          f"{[r['phase_wall'] for r in res]} collectives per rank "
+          f"{[r['comm_calls'] for r in res]}, share of the wall "
+          f"{[round(s, 4) for s in share]} launches per rank "
+          f"{[r['launches'] for r in res]}", flush=True)
+    if not all(np.array_equal(r["x"], r0["x"]) and
+               np.array_equal(r["y"], r0["y"]) for r in res):
+        fail(f"{name}: the ranks returned different solutions")
+    if not (np.all(np.isfinite(r0["x"])) and np.all(np.isfinite(r0["y"]))):
+        fail(f"{name}: non-finite solution on the mesh")
+    for r in res:
+        if any(r["launches"].get(k, 0) == 0 for k in PANEL_KERNELS):
+            fail(f"{name}: K14/K15 did not launch on every rank")
+        if any(r["launches"].get(k, 0) for k in OFF_MESH):
+            fail(f"{name}: dd64 or K3 launched under a mesh")
+    ok = info["pinf"] == 0 and info["dinf"] == 0 and info["numerr"] < 2
+    if cx_unsharded is not None:
+        ok = ok and abs(r0["cx"] - cx_unsharded) \
+            <= 1e-6 * (1.0 + abs(cx_unsharded))
+    else:
+        ok = ok and rel <= 1e-6
+    if not ok:
+        fail(f"{name} {json.dumps(shape)}: the mesh path's gate not met")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one card", file=sys.stderr)
@@ -1618,6 +1947,7 @@ def main() -> None:
             check_psd_coo_f32(dev, gen), check_ldl_masked_f32(dev, gen)]
     rows += check_df_gemv(dev, gen)
     rows += check_jacobi(dev, gen)
+    rows += check_panel_kernels(dev, gen)
     torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()
@@ -1625,8 +1955,10 @@ def main() -> None:
             ("control07", False), ("trto3", False),
             ("OH_2Pi_STO-6GN9r12g1T2", False)]
     dd_kernels = ("ozaki_split", "dd_accumulate", "dd_gemv", "dd_panel_chol")
+    landed = {}
     for name, gate in plan:
         counts, info = run_example(load_example(name), gate)
+        landed[name] = info["cx"]
         if counts.get("dd_matvec_residual", 0) == 0:
             fail(f"{name}: the compensated-residual kernel never ran")
         if name == "arch0":
@@ -1728,6 +2060,20 @@ def main() -> None:
     for k, v in kernels.LAUNCHES.items():
         total[k] += v
 
+    # the mesh path (pars.mesh_shape), its counts zeroed in every rank
+    # just before its solve and read just after; this process launches
+    # nothing meanwhile
+    kernels.reset_launch_counts()
+    t_mesh = time.time()
+    for name, shape, nprocs, gate in MESH_SOLVES:
+        counts = run_mesh(name, shape, nprocs,
+                          landed[name] if gate == "unsharded" else None)
+        for k, v in counts.items():
+            total[k] += v
+    print(f"mesh path: {time.time() - t_mesh:.1f}s", flush=True)
+    if any(kernels.LAUNCHES.values()):
+        fail("the parent process launched a kernel during the mesh path")
+
     # the sparse engine's kernels at the plans' shapes
     rng = np.random.default_rng(20261016)
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
@@ -1737,6 +2083,7 @@ def main() -> None:
                                dev, gen, rng)
     rows += check_tile_kernels({k: plans[k] for k in ("lp20k", "sdp1200")},
                                dev, gen, rng, dtype=torch.float32)
+    check_library_rows(dev, gen, rng, plans)
     for row in rows:
         row["launches"] = total[row["name"]]
         if row["launches"] == 0 and row["name"] not in OFF_PATH:

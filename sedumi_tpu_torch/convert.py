@@ -14,7 +14,7 @@ import torch
 from .cones import Layout
 from .ipm import IPMState
 from .nt import Scaling
-from .opA import CooAOp
+from .opA import CooAOp, DenseAOp
 from .structs import F64, ConeVec
 
 
@@ -86,3 +86,11 @@ def aop_from_numpy(Al, Aq, s_parts, q_shapes, s_meta,
         parts.append(out)
     return CooAOp(Al=_t(Al, device), Aq=[_t(a, device) for a in Aq],
                   s_parts=parts, q_shapes=q_shapes, s_meta=s_meta)
+
+
+def dense_aop_from_numpy(Al, Aq, As, q_shapes, s_shapes,
+                         device="cuda") -> DenseAOp:
+    """The port's DenseAOp from the reference DenseAOp's arrays."""
+    return DenseAOp(Al=_t(Al, device), Aq=[_t(a, device) for a in Aq],
+                    As=[_t(a, device) for a in As], q_shapes=q_shapes,
+                    s_shapes=s_shapes)

@@ -301,6 +301,9 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
             and engine.factor_dtype is None:
         # f64 factor of the f32-formed matrix (reference ipm.py:366-369)
         engine.factor_dtype = dtype
+    # host decisions of the step; an engine split over a mesh makes them
+    # global rank 0's, so every rank issues the same collectives
+    flag = getattr(engine, "agree", bool)
     sturm = pars.alg == 2 and bool(pars.wr) and not hybrid
     use_wr = bool(pars.wr) and pars.alg != 0
     fi_cd, eps_hi = torch.finfo(cd), torch.finfo(dtype).eps
@@ -478,7 +481,7 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
 
             # ---- initial centering toward vTAR, residual rows zero
             # (wregion.m:50-55); dropped if it leaves the interior ----
-            if bool(ok0 & (delta0 > 1e-4)):   # host gate (ipm.py:666)
+            if flag(ok0 & (delta0 > 1e-4)):   # host gate (ipm.py:666)
                 rc_c = _diag_cv(
                     2.0 * S.lam_l * (vt_l - S.lam_l),
                     [jd.q_remap(ql, 2.0 * lv * (v_ - lv))
@@ -491,11 +494,11 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
                 xs_ct = cv_add(lam_cv, nt.scale_x_to_v(S, dxc_t))
                 zs_ct = cv_add(lam_cv, nt.scale_z_to_v(S, dzc_t))
                 tau_ct, kappa_ct = tau + dtauc_t, kappa + dkappac_t
-                gate = (_all_finite(cv_leaves(dxc_t) + cv_leaves(dzc_t)
-                                    + [dyc_t, dtauc_t, dkappac_t])
-                        and bool((tau_ct > 0) & (kappa_ct > 0)
-                                 & _strict_interior(xs_ct)
-                                 & _strict_interior(zs_ct)))
+                gate = flag(_all_finite(cv_leaves(dxc_t) + cv_leaves(dzc_t)
+                                         + [dyc_t, dtauc_t, dkappac_t])
+                            and bool((tau_ct > 0) & (kappa_ct > 0)
+                                     & _strict_interior(xs_ct)
+                                     & _strict_interior(zs_ct)))
             if gate:
                 dxc, dyc, dzc, dtauc, dkappac = dc
                 xs_b, zs_b, tau_b, kappa_b = xs_ct, zs_ct, tau_ct, kappa_ct
@@ -636,10 +639,10 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
             ms_x2, ms_z2 = nt.maxstep_pair(xs_b, dxs2, zs_b, dzs2)
             amax_p2 = torch.minimum(ms_x2, _pos_step(tau_b, dtau2))
             amax_d2 = torch.minimum(ms_z2, _pos_step(kappa_b, dkappa2))
-            better = _all_finite(cv_leaves(dxg) + cv_leaves(dzg)
-                                 + [dyg, dtaug, dkappag]) and bool(
+            better = flag(_all_finite(cv_leaves(dxg) + cv_leaves(dzg)
+                                      + [dyg, dtaug, dkappag]) and bool(
                 torch.minimum(amax_p2, amax_d2)
-                > 1.05 * torch.minimum(amax_p, amax_d))
+                > 1.05 * torch.minimum(amax_p, amax_d)))
             if better:
                 return (dx2, dy2, dz2, dtau2, dkappa2, dxs2, dzs2,
                         amax_p2, amax_d2)
@@ -648,7 +651,7 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
         carry = (dx, dy, dz, dtau, dkappa, dxs, dzs, amax_p, amax_d)
         for _ in range(0 if hybrid else max(0, int(pars.mcc))):
             # host gate (ipm.py:907): only short boundary steps get a round
-            if bool(torch.minimum(carry[7], carry[8]) < 0.8):
+            if flag(torch.minimum(carry[7], carry[8]) < 0.8):
                 carry = mcc_round(*carry)
         dx, dy, dz, dtau, dkappa, dxs, dzs, amax_p, amax_d = carry
         if pars.mcc and not hybrid:
@@ -681,7 +684,7 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
             tp, td = _stepdif(pars, sd_on, use_wr, alpha, amax_p, amax_d,
                               gamma, aop, b, rp, rd, dax_full, dx, dy, dz,
                               dtau, dkappa, x_b, z_b, tau_bb, kappa_bb,
-                              gap_b, xs_b, zs_b, dxs, dzs, m, lo)
+                              gap_b, xs_b, zs_b, dxs, dzs, m, lo, flag)
         if hybrid:
             # never step along a direction whose defect stayed catastrophic
             # (a beyond-conditioning f32 solve): the null step lets the
@@ -714,7 +717,7 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
             # tau stays positive at BOTH rates (mu_c denominator below)
             tau_c = torch.minimum(tau_bb + tp * dtau, tau_bb + td * dtau)
             kap_c = kappa_bb + td * dkappa
-            if bool(interior(xc, tau_c, kap_c) & interior(zc, tau_c, kap_c)):
+            if flag(interior(xc, tau_c, kap_c) & interior(zc, tau_c, kap_c)):
                 break
             tp, td = 0.6 * tp, 0.6 * td
 
@@ -758,7 +761,7 @@ def make_step(layout: Layout, pars: Pars, normb: float, normc: float,
 
 def _stepdif(pars, sd_on, use_wr, alpha, amax_p, amax_d, gamma, aop, b, rp,
              rd, dax_full, dx, dy, dz, dtau, dkappa, x_b, z_b, tau_b,
-             kappa_b, gap_b, xs_b, zs_b, dxs, dzs, m, lo):
+             kappa_b, gap_b, xs_b, zs_b, dxs, dzs, m, lo, flag=bool):
     """Primal/dual step-length differentiation (stepdif.m:39-175 restated
     for the HSD coordinates, with the homogeneous compensation of
     wregion.m:162-168) and the trydif.m wide-region re-test, whose spectra
@@ -845,7 +848,7 @@ def _stepdif(pars, sd_on, use_wr, alpha, amax_p, amax_d, gamma, aop, b, rp,
     if use_wr:
         # trydif.m:40-72: keep the differentiated pair only if the
         # candidate stays in the wide region (host gate, ipm.py:1097)
-        differentiated = bool(clear_win) and (pars.stepdif != 2 or sd_on)
+        differentiated = flag(clear_win) and (pars.stepdif != 2 or sd_on)
         if differentiated:
             tp_l, td_l = lo(tp), lo(td)
             xs_try = cv_map(lambda a, d_: a + tp_l * d_, xs_b, dxs)

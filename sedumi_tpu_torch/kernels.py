@@ -87,6 +87,12 @@ SOURCES = {
     "jacobi_herm.cu": {
         "jacobi_herm_c128_launch": _JACOBI_ARGS,
         "jacobi_herm_c64_launch": _JACOBI_ARGS},
+    "panel_chol.cu": {
+        "panel_chol_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    "panel_solve.cu": {
+        "panel_fwd_step_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "panel_bwd_contrib_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "panel_bwd_solve_launch": [_P, _P, _P, _P, _I, _P]},
 }
 
 # K1-K3, K8-K10, K12 and K13 count their builds apart (the *_f32 and
@@ -98,7 +104,9 @@ LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "tile_solve_f32": 0, "dd_matvec_residual_f32": 0,
             "psd_contrib_coo_f32": 0, "ldl_masked_f32": 0, "df_matvec": 0,
             "df_vecmat": 0, "jacobi_eigh": 0, "jacobi_eigh_f32": 0,
-            "jacobi_eigh_herm": 0, "jacobi_eigh_herm_c64": 0}
+            "jacobi_eigh_herm": 0, "jacobi_eigh_herm_c64": 0,
+            "dist_panel_chol": 0, "dist_trisolve_fwd": 0,
+            "dist_trisolve_bwd_contrib": 0, "dist_trisolve_bwd_solve": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

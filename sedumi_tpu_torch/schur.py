@@ -21,11 +21,16 @@ import torch
 
 from . import kernels
 from .nt import Scaling
-from .opA import CooAOp
+from .opA import DenseAOp
 
 
-def build_schur(aop: CooAOp, S: Scaling) -> torch.Tensor:
-    """The (m+1) x (m+1) augmented Schur complement."""
+def build_schur(aop, S: Scaling) -> torch.Tensor:
+    """The (m+1) x (m+1) augmented Schur complement of a CooAOp or a
+    DenseAOp.  An operator split over a device mesh
+    (parallel.mesh.ShardedAOp) forms its own: partial sums all-reduced
+    over the mesh's data axes."""
+    if hasattr(aop, "schur"):
+        return aop.schur(S)
     mp1 = aop.m + 1
     M = torch.zeros(mp1, mp1, dtype=aop.Al.dtype, device=aop.Al.device)
 
@@ -40,6 +45,10 @@ def build_schur(aop: CooAOp, S: Scaling) -> torch.Tensor:
         w = (eta2[:, None] * jsign[None, :]).reshape(-1)   # [c*d]
         M = M - (aq * w[None, :]) @ aq.T
 
+    if isinstance(aop, DenseAOp):
+        for as_, (k, d), r in zip(aop.As, aop.s_shapes, S.s_r):
+            M = M + _psd_contrib(as_, k, d, r)
+        return M
     for part, (rep, k, d, G, pad2, T), r in zip(aop.s_parts, aop.s_meta,
                                                 S.s_r):
         if rep == "dense":

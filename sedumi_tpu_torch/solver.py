@@ -33,15 +33,26 @@ in 'float32'.  A phase is left on a rejected direction, a stall, a
 plateau, or the f32 phase's own probe and floor rules; the ladder's
 escalation can skip the hybrid rung and discard a junk f32 trajectory.
 Control scalars live on the host; each iteration is one ipm.make_step
-call on the device.  Routes this port does not cover raise
-NotImplementedError naming the ROADMAP item instead of falling back: a
-device mesh (pars.mesh_shape) and the profiling/debug options.
+call on the device.
+
+A device mesh (pars.mesh_shape; mesh_plan) runs SPMD, one process per mesh
+position in an initialized torch.distributed group, every rank solving the
+same data: on the dense route the data axes split the Schur formation
+(parallel.mesh.shard_coo_aop) and a "panels" axis factors and solves it in
+panels (parallel.panels.PanelSchurEngine), in f64 only, with dd64 off as
+in the reference; the sparse route ignores the mesh.  After each step
+(and each escalation) every rank takes global rank 0's iterate and
+statistics, so the host loops branch alike and return the same result.
+Routes this port does not cover raise NotImplementedError naming the
+ROADMAP item instead of falling back: the precision ladder under a mesh
+and the profiling/debug options.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Any, Mapping
 
@@ -54,6 +65,8 @@ from .ddengine import DdSchurEngine
 from .df import build_df_aop
 from .opA import build_coo_aop
 from .params import Pars
+from .parallel.mesh import Mesh, from_root, shard_coo_aop, world_size
+from .parallel.panels import PanelSchurEngine
 from .sparse_engine import TileSchurEngine, make_sparse_lq_op, \
     plan_sparse_lq
 from .structs import cv_eye, cv_scale, from_flat, to_flat
@@ -154,10 +167,6 @@ def _projected_start(At, b, layout, state):
 
 def _check_routes(pars: Pars) -> None:
     """Raise for the reference routes this port does not cover."""
-    if pars.mesh_shape:
-        raise NotImplementedError(
-            "pars.mesh_shape: the multi-device path is not ported yet "
-            "(ROADMAP queue A item 10)")
     if pars.profile or pars.debug:
         raise NotImplementedError(
             "pars.profile / pars.debug are not ported yet (ROADMAP queue A "
@@ -214,24 +223,25 @@ def dd_form_cost(layout: Layout, m: int) -> float:
     return cost * 11.0
 
 
-def dd64_admitted(layout: Layout, m: int) -> bool:
-    """The reference's dd64 gate (solver.py:642-644): m <= 1200 and a
-    formation cost below 2.5e11.  It admits arch0 (~4e10) and control07
-    (~1.4e11) and excludes trto3 and OH.  (The reference's other terms,
-    a host f64 device and no mesh, hold on the port's path.)"""
-    return m <= 1200 and dd_form_cost(layout, m) < 2.5e11
+def dd64_admitted(layout: Layout, m: int, mesh: bool = False) -> bool:
+    """The reference's dd64 gate (solver.py:642-644): no device mesh,
+    m <= 1200 and a formation cost below 2.5e11.  It admits arch0 (~4e10)
+    and control07 (~1.4e11) and excludes trto3 and OH.  (Its other term,
+    a host f64 device, holds on the card.)"""
+    return not mesh and m <= 1200 and dd_form_cost(layout, m) < 2.5e11
 
 
 def phase_ladder(engine_kind: str, layout: Layout, m: int,
-                 mode: str = "f64") -> list[str]:
+                 mode: str = "f64", mesh: bool = False) -> list[str]:
     """The phases a solve may take in precision `mode` (reference
     solver.py:438-467, 642-646): [f64], [f32] or [f32, hybrid, host64],
-    with dd64 last when the dense engine is used, dd64_admitted holds and
-    the mode is not 'f32'.  (The reference's host64 and dd64 need an f64
-    device, which the card always is.)"""
+    with dd64 last when the dense engine is used, dd64_admitted holds (no
+    mesh among its terms) and the mode is not 'f32'.  (The reference's
+    host64 and dd64 need an f64 device, which the card always is.)"""
     order = {"f64": ["f64"], "f32": ["f32"],
              "mixed": ["f32", "hybrid", "host64"]}[mode]
-    if engine_kind == "dense" and dd64_admitted(layout, m) and mode != "f32":
+    if engine_kind == "dense" and dd64_admitted(layout, m, mesh) \
+            and mode != "f32":
         order = order + ["dd64"]
     return order
 
@@ -255,6 +265,48 @@ def _phase_eigh(phase: str, device):
     impl = phase_eigh_impl(phase, device)
     return linalg_ops.impl_override(impl) if impl \
         else contextlib.nullcontext()
+
+
+def mesh_plan(pars: Pars, engine_kind: str, mode: str):
+    """The mesh a solve builds (the reference's rule, solver.py:314-352,
+    for SPMD ranks): None without pars.mesh_shape, for a one-position
+    mesh, or when the process group holds fewer ranks than the mesh (the
+    solve then runs unsharded, as the reference does with too few
+    devices); ValueError when it holds more.  Else (shape, data_axes,
+    panel_axis): a one-axis mesh is named "blocks", as the reference's
+    make_mesh(n) names it.  On the dense route every axis but "panels" is
+    a data axis, unless the one-axis mesh was asked for as "panels", and a
+    "panels" axis in pars.mesh_shape takes PanelSchurEngine on "panels"
+    (or "blocks"); the sparse route ignores the mesh ((), None), and the
+    precision ladder under a mesh on the dense route is not ported."""
+    shape = {str(k): int(v) for k, v in (pars.mesh_shape or {}).items()}
+    n_req = math.prod(shape.values())
+    if n_req <= 1:
+        return None
+    world = world_size()
+    if world > n_req:
+        raise ValueError(f"pars.mesh_shape {shape} has {n_req} positions "
+                         f"and the process group {world} ranks")
+    if world < n_req:
+        _log(pars, f"mesh {shape} needs {n_req} ranks and the process "
+                   f"group has {world}: running unsharded")
+        return None
+    built = shape if len(shape) > 1 else {"blocks": n_req}
+    if engine_kind != "dense":
+        return built, (), None
+    if mode != "f64":
+        raise NotImplementedError(
+            f"pars.dtype={pars.dtype!r} under a device mesh: the precision "
+            f"ladder with the panel engine (f32 builds of K14/K15) is not "
+            f"ported yet (ROADMAP queue A item 10b)")
+    if len(shape) > 1:
+        data_axes = tuple(k for k in shape if k != "panels")
+    else:
+        data_axes = () if "panels" in shape else ("blocks",)
+    panel_axis = None
+    if "panels" in shape:
+        panel_axis = "panels" if "panels" in built else "blocks"
+    return built, data_axes, panel_axis
 
 
 def solve_internal(At, b, c, layout: Layout, pars: Pars,
@@ -309,16 +361,25 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
                    f"{sp_meta['Kd']} dense column(s)")
     F32, F64 = torch.float32, torch.float64
     dt_hi = F32 if mode == "f32" else F64     # the state's dtype
+    plan = mesh_plan(pars, engine_kind, mode)
+    mesh = Mesh(plan[0], device) if plan else None
+    data_axes, panel_axis = plan[1:] if plan else ((), None)
     ops = {}
 
     def _op(dtype):
         """The operator in `dtype`, built once per dtype (reference
-        solver.py:307-311)."""
+        solver.py:307-311), its formation split over the mesh's data axes
+        when there are any (reference solver.py:376-386)."""
         if dtype not in ops:
             ops[dtype] = make_sparse_lq_op(*sp_plan, dtype=dtype,
                                            device=device) \
                 if engine_kind == "sparse" else \
                 build_coo_aop(At, c_s, layout, device=device, dtype=dtype)
+            if data_axes:
+                ops[dtype] = shard_coo_aop(
+                    ops[dtype], mesh,
+                    data_axes if len(data_axes) > 1 else data_axes[0])
+                _log(pars, f"sharded operator over mesh {mesh.shape}")
         return ops[dtype]
 
     def _bundle(sdt, aop, engine=None, compute_dtype=None, aop_lo=None,
@@ -330,6 +391,10 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
         never reads pars.schur_dtype, as the reference's does not."""
         if engine_kind == "sparse":
             engine = TileSchurEngine(pars)
+        elif engine is None and panel_axis:
+            engine = PanelSchurEngine(
+                mesh, axis=panel_axis,
+                refine_iters=max(2, int(pars.cg.refine)))
         return dict(
             step=ipm.make_step(layout, pars, normb, normc, cscale,
                                dtype=sdt, engine=engine,
@@ -340,7 +405,8 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
             rs=torch.as_tensor(rowscale, dtype=sdt, device=device),
             sdt=sdt, recenter=recenter)
 
-    phase_order = phase_ladder(engine_kind, layout, m, mode)
+    phase_order = phase_ladder(engine_kind, layout, m, mode,
+                               mesh=mesh is not None)
     bundles: dict[str, dict] = {}
     if mode == "mixed":
         # the hybrid phase's f64-quality operator: the double-float DfAOp
@@ -360,6 +426,9 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
     normc_s = float(np.max(np.abs(c_s))) if c.size else 0.0
     state = ipm.init_state(layout, bundles[cur]["aop"], b, normb_s, normc_s,
                            pars, device=device, dtype=dt_hi)
+    if mesh is not None:
+        _log(pars, f"device mesh {mesh.shape}: rank {mesh.rank}, data axes "
+                   f"{data_axes}, panel axis {panel_axis}")
     # --- two-sided residual-balanced start (reference solver.py:472-512):
     # scale x by d0 and z by 1/d0, d0 minimizing max(err_p0, err_d0) ---
     if m > 0:
@@ -454,13 +523,16 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
                                           device, dt_hi)
             _log(pars, f"resumed from {pars.checkpoint_path} at iter {it0}")
     # tracked stopping residuals (sedumi.m:545-566), seeded after resume
+    if mesh is not None:
+        state = from_root(mesh, state)
     rw_p, rw_d = _measure_resid_inf(state)
 
     # --- the phase ladder; host64 and dd64 are built at their first
     # escalation.  dd64_possible is the reference's gate (its f64-device
-    # and mesh terms hold here), which the f32 floor rule reads even where
-    # the ladder has no dd64 ---
-    dd64_possible = engine_kind == "dense" and dd64_admitted(layout, m)
+    # term holds here), which the f32 floor rule reads even where the
+    # ladder has no dd64 ---
+    dd64_possible = engine_kind == "dense" \
+        and dd64_admitted(layout, m, mesh is not None)
     recenter_hi = ipm.make_recenter(layout, dt_hi)
     recenter_lo = ipm.make_recenter(layout, F32)
 
@@ -503,7 +575,7 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
         if bundles[nxt]["recenter"]:
             with _phase_eigh(nxt, device):
                 s = recenter_hi(s)
-        state = s
+        state = s if mesh is None else from_root(mesh, s)
         _log(pars, f"  escalating {cur} -> {nxt} ({why})")
         rw_p, rw_d = _measure_resid_inf(state)
         cur = nxt
@@ -550,6 +622,8 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
                 new_state, st = bd["step"](bd["aop"], bd["b"], bd["rs"],
                                            st_in, reg, sd_on=sd_on,
                                            aop_lo=bd["aop_lo"])
+            if mesh is not None:
+                new_state, st = from_root(mesh, (new_state, st))
             rec = st.to_host()
             finite = np.isfinite(rec["mu"]) and bool(rec["chol_ok"]) \
                 and np.isfinite(rec["alpha"])
@@ -784,7 +858,8 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
             stop = -1
             break
         if pars.checkpoint_every and pars.checkpoint_path and \
-                it % pars.checkpoint_every == 0:
+                it % pars.checkpoint_every == 0 and \
+                (mesh is None or mesh.rank == 0):
             _save_checkpoint(pars.checkpoint_path, layout, state, it)
 
     # best-iterate fallback, except on the infeasibility path where the

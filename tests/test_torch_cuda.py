@@ -831,3 +831,93 @@ def test_mixed_sparse_solve_card_matches_cpu(cuda):
         assert runs["card"]["launches"][k] > 0, k
     assert abs(runs["card"]["cx"] - runs["cpu"]["cx"]) <= 1e-7 * abs(
         runs["cpu"]["cx"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,mp", [(4, 32), (32, 128), (64, 256),
+                                   (128, 1024)])
+def test_panel_kernels(cuda, bs, mp):
+    """K14 on every block column (and a non-PD diagonal block: NaN from
+    it on) and K15 in a two-panel substitution, against their plain
+    versions within 1e-12 of max|L| and of max|x|."""
+    from chip_smoke import PANEL_TOL, panel_case
+
+    c = panel_case(bs, mp, torch.Generator().manual_seed(bs + mp), cuda)
+    nb = mp // bs
+    assert c["counts"] == {"dist_panel_chol": nb + 1,
+                           "dist_trisolve_fwd": nb,
+                           "dist_trisolve_bwd_contrib": 2 * nb,
+                           "dist_trisolve_bwd_solve": nb}
+    assert c["rel_l"] <= PANEL_TOL and c["rel_x"] <= PANEL_TOL
+    assert c["fac"] <= 1e-8 and c["resid"] <= 1e-8 and c["nan_ok"]
+
+
+@pytest.mark.cuda
+def test_mesh_panels_witness(cuda):
+    """nb with {"panels": 2} on two ranks sharing this card (gloo): the
+    reference gate, the same x on both ranks, K14 and K15 launched on
+    each, no dd64 kernel or K3; c'x within 1e-8 relative of the
+    unsharded card solve.  Prints one JSON line."""
+    from sedumi_tpu_torch.parallel import entry
+    from sedumi_tpu_torch.parallel.launch import run_spmd
+
+    ex = load_example("nb")
+    res = run_spmd(entry.rank_sedumi, 2,
+                   args=(("example", "nb"),
+                         {"fid": 0, "mesh_shape": {"panels": 2}}, "cuda"),
+                   device="cuda", timeout_s=300)
+    x0, y0, _ = st.sedumi(ex.At, ex.b, ex.c, ex.K, {"fid": 0}, device=cuda)
+    cx0 = float(ex.c @ x0)
+    print(json.dumps({"mesh_nb": [{k: v for k, v in r.items()
+                                   if k not in ("x", "y")} for r in res],
+                      "cx_unsharded": cx0}), flush=True)
+    r0 = res[0]
+    rel = abs(r0["cx"] - ex.optval) / abs(ex.optval)
+    assert r0["info"]["pinf"] == 0 and r0["info"]["dinf"] == 0
+    assert r0["info"]["numerr"] < 2 and rel <= 1e-6
+    assert abs(r0["cx"] - cx0) <= 1e-8 * abs(cx0)
+    for r in res:
+        np.testing.assert_array_equal(r["x"], r0["x"])
+        for k in ("dist_panel_chol", "dist_trisolve_fwd",
+                  "dist_trisolve_bwd_contrib", "dist_trisolve_bwd_solve"):
+            assert r["launches"].get(k, 0) > 0, k
+        for k in ("ldl_masked", "dd_panel_chol", "dd_gemv"):
+            assert r["launches"].get(k, 0) == 0, k
+
+
+@pytest.mark.cuda
+def test_mesh_oh_witness(cuda):
+    """OH with {"panels": 2} on two ranks of this card: as it runs; under
+    torch.use_deterministic_algorithms; and deterministically with
+    K14/K15's plain versions; beside the unsharded card solve.  Prints
+    one JSON line (iterations, numerr, c'x of each).  Every run must meet
+    the mesh path's gate (pinf = dinf = 0, numerr < 2, c'x within
+    1e-6 (1 + |c'x|) of the unsharded solve)."""
+    from sedumi_tpu_torch.parallel import entry
+    from sedumi_tpu_torch.parallel.launch import run_spmd
+
+    name = "OH_2Pi_STO-6GN9r12g1T2"
+    ex = load_example(name)
+    pars = {"fid": 0, "mesh_shape": {"panels": 2}}
+    x0, _, info0 = st.sedumi(ex.At, ex.b, ex.c, ex.K, {"fid": 0}, device=cuda)
+    cx0 = float(ex.c @ x0)
+    runs = {"card": run_spmd(entry.rank_sedumi, 2,
+                             args=(("example", name), pars, "cuda"),
+                             device="cuda", timeout_s=900)}
+    for label, plain in (("deterministic", False),
+                         ("deterministic_plain", True)):
+        runs[label] = run_spmd(entry.rank_sedumi_witness, 2,
+                               args=(("example", name), pars, plain, "cuda"),
+                               device="cuda", timeout_s=900)
+    summary = {k: {f: r[0][f] for f in ("info", "phases", "cx", "wall",
+                                        "comm_calls", "comm_s")}
+               for k, r in runs.items()}
+    summary["unsharded"] = {"iter": info0["iter"],
+                            "numerr": info0["numerr"], "cx": cx0}
+    print(json.dumps({"mesh_oh": summary}), flush=True)
+    for res in runs.values():
+        r0 = res[0]
+        assert r0["info"]["pinf"] == 0 and r0["info"]["dinf"] == 0
+        assert r0["info"]["numerr"] < 2
+        assert abs(r0["cx"] - cx0) <= 1e-6 * (1.0 + abs(cx0))
+        np.testing.assert_array_equal(res[1]["x"], r0["x"])

@@ -422,9 +422,10 @@ def test_f64_solve_under_jacobi_matches_reference():
 
 
 def test_chip_smoke_generates_the_reference_instances():
-    """chip_smoke.py's copy of the reference's feasible_problem (it may
-    not import the reference) draws the same e2e ladder instance and
-    dense SOCP."""
+    """chip_smoke.py's generator, the port's copy of the reference's
+    feasible_problem (sedumi_tpu_torch.generators: chip_smoke.py may not
+    import the reference), draws the same e2e ladder instance and dense
+    SOCP as the reference's."""
     from chip_smoke import E2E_LADDER, SOCP_DENSE, feasible_problem
     from sedumi_tpu.generators import feasible_problem as ref_problem
 

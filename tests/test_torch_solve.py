@@ -116,12 +116,19 @@ def test_checkpoint_resume(tmp_path):
 
 
 @pytest.mark.parametrize("pars,item", [
-    ({"debug": 1}, "item 11"), ({"mesh_shape": {"blocks": 2}}, "item 10"),
+    ({"debug": 1}, "item 11"),
+    ({"mesh_shape": {"blocks": 2}, "dtype": "mixed"}, "item 10"),
     ({"profile": 1}, "item 11")])
-def test_unported_routes_raise(pars, item):
+def test_unported_routes_raise(pars, item, monkeypatch):
     """Routes the port does not cover raise instead of falling back.  (The
     precision ladder on the sparse engine is ported: its solves are held in
-    tests/test_torch_sparse_precision.py.)"""
+    tests/test_torch_sparse_precision.py.  The f64 mesh is ported, its
+    solves held in tests/test_torch_parallel.py; the ladder under a mesh
+    raises (item 10b) once the process group holds the mesh's ranks, which
+    the test stands in for without spawning them.)"""
+    from sedumi_tpu_torch import solver
+
+    monkeypatch.setattr(solver, "world_size", lambda: 2)
     At, b, c, K = _problem()
     with pytest.raises(NotImplementedError, match=item):
         pt.sedumi(At, b, c, K, {"fid": 0, **pars}, device="cpu")
