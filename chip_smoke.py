@@ -8,9 +8,11 @@
    eigensolvers K12 (f64, f32) and K13 (complex128, complex64) against
    their plain-PyTorch twins on the card at the shapes the solver gives
    them, with the tolerance stated (K1, K2, K6, K11 and the f32 K1, K2
-   within error bounds; K3, K4, K5, K7 and the f32 K3 bit for bit; K12
-   and K13 within 4 n eps ||A|| in the same eigenvalue slots, with their
-   residual and orthogonality against the plain version's), and the
+   within error bounds; K3, K4, K5, K7, the f32 K3 and K12 bit for bit,
+   K12 also in its sweep count, in each of its variants: one block, a
+   cluster of 2-16 CTAs, device memory; K13 within 4 n eps ||A|| in the
+   same eigenvalue slots, with its residual and orthogonality against
+   the plain version's), and the
    Schur-panel kernels of the mesh path, K14 (a block column of the
    distributed Cholesky) and K15 (the distributed substitution's three
    steps), at OH's and nb's panel shapes within 1e-12 of max|L| and of
@@ -807,6 +809,13 @@ def off_norm(A, w, V):
     return torch.linalg.matrix_norm(Ad @ Vd - Vd * w.to(Ad.dtype)[:, None])
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN where the other has NaN."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) \
+        and bool(torch.equal(a[~nan], b[~nan]))
+
+
 def jacobi_compare(A, got, want, sweeps, vectors) -> dict:
     """A Jacobi kernel's result `got` against its plain version's `want`
     (each (w, V, sweeps run)) on the batch A.  Tolerance: NaN exactly
@@ -830,8 +839,7 @@ def jacobi_compare(A, got, want, sweeps, vectors) -> dict:
     finite = torch.isfinite(w0)
     out = dict(
         sweeps=int(nsw.max()), sweeps_plain=int(nsw0.max()),
-        bit_equal=bool(torch.equal(w, w0)) and (
-            not vectors or bool(torch.equal(V, V0))),
+        bit_equal=same_bits(w, w0) and (not vectors or same_bits(V, V0)),
         max_abs_err=float(torch.abs(w - w0)[finite].max())
         if bool(finite.any()) else 0.0, sorted_err=0.0, tol=0.0)
     ok = bool(torch.equal(torch.isnan(w), torch.isnan(w0)))
@@ -865,28 +873,41 @@ def jacobi_compare(A, got, want, sweeps, vectors) -> dict:
 
 def jacobi_case(label, A, sweeps, vectors, time_it=True):
     """One batch through the kernel and its plain version on the card,
-    held to jacobi_compare's tolerance.  Prints the comparison, times the
-    kernel, the plain version and torch.linalg.eigh (or eigvalsh) on the
-    same batch, and the bound."""
+    held to jacobi_compare's tolerance, and K12 to bit-equality with the
+    plain version's sweep count.  K12 runs the dispatch's plan; the line
+    names the variant and order it launched (its VARIANT_LAUNCHES key).
+    Prints the comparison, times the kernel, the plain version and
+    torch.linalg.eigh (or eigvalsh) on the same batch, and the bound."""
     from sedumi_tpu_torch import kernels, lax_eigh
 
     name = lax_eigh._KERNELS[A.dtype][2]
     herm = A.is_complex()
     plain = lax_eigh._jacobi_herm_plain if herm else lax_eigh._jacobi_plain
+
+    def kernel():
+        return lax_eigh._jacobi(A, sweeps, vectors)
+
     n0 = kernels.LAUNCHES[name]
-    got = lax_eigh._jacobi(A, sweeps, vectors)
+    before = dict(lax_eigh.VARIANT_LAUNCHES)
+    got = kernel()
     torch.cuda.synchronize()
     if kernels.LAUNCHES[name] != n0 + 1:
         fail(f"{name} did not launch its kernel on {label}")
+    variant = [k for k, v in lax_eigh.VARIANT_LAUNCHES.items()
+               if v != before.get(k, 0)]
     line = dict(case=label, kernel=name, k=A.shape[0], n=A.shape[-1],
                 vectors=vectors, sweeps_budget=sweeps,
                 **jacobi_compare(A, got, plain(A, sweeps, vectors), sweeps,
                                  vectors))
+    if not herm:
+        line["variant"], = variant
+        if not line["bit_equal"] or line["sweeps"] != line["sweeps_plain"]:
+            fail(f"{name} is not bit-equal to its plain version, or ran "
+                 f"other sweeps, on {label}: {json.dumps(line)}")
     if time_it and bool(torch.isfinite(A).all()):
         k, n = A.shape[0], A.shape[-1]
         reps = max(1, min(50, int(2e8 // (k * n ** 3))))
-        line["ms"] = cuda_ms(lambda: lax_eigh._jacobi(A, sweeps, vectors),
-                             reps)
+        line["ms"] = cuda_ms(kernel, reps)
         line["plain_ms"] = cuda_ms(lambda: plain(A, sweeps, vectors), 1,
                                    warmup=0)
         lib = torch.linalg.eigh if vectors else torch.linalg.eigvalsh
@@ -910,21 +931,85 @@ def jacobi_case(label, A, sweeps, vectors, time_it=True):
     return line
 
 
+def plan_label(plan) -> str:
+    return f"{plan[0]}{plan[1] if plan[0] == 'cluster' else ''}"
+
+
+# (order, dtype, batch, vectors) of check_k12_plans: batch 1 on both
+# sides of the block/cluster crossover of each dtype and at arch0's and
+# trto3's orders, values only at the path's batch of two, and the batches
+# at which jacobi_plan's batch rule changes its choice at 162 and 322
+F32, F64 = torch.float32, torch.float64
+K12_PLAN_CASES = tuple(
+    [(n, F32, 1, True)
+     for n in (47, 63, 79, 95, 99, 103, 107, 109, 161, 321)]
+    + [(n, F64, 1, True) for n in (63, 71, 79, 87, 95, 161)]
+    + [(n, F32, 2, False) for n in (95, 109, 127, 161)]
+    + [(161, F32, b, True) for b in (9, 17, 34, 67)]
+    + [(321, F32, b, True) for b in (9, 34)])
+
+
+def check_k12_plans(dev, gen):
+    """K12 at the full budget in every plan that holds the matrix (one
+    block, 2-16 CTAs), at K12_PLAN_CASES: each bit-equal to the plain
+    version with its sweep count, and timed (ms per call of the whole
+    batch), beside the plan that lax_eigh.jacobi_plan picks and the
+    fastest.  Prints one line; the times are why the plan picks what it
+    does."""
+    from sedumi_tpu_torch import lax_eigh
+
+    out = []
+    for n, dt, k, vec in K12_PLAN_CASES:
+        A = nt_like(k, n, dt, gen).to(dev)
+        m, sweeps = n + n % 2, lax_eigh._sweeps_for(n, dt)
+        w0, V0, s0 = lax_eigh._jacobi_plain(A, sweeps, vec)
+        reps = max(1, min(50, int(2e8 // (k * m ** 3))))
+        times = {}
+        plans = [("block", 1)] if lax_eigh.smem_bytes(m, dt, vec) \
+            <= lax_eigh.SMEM_MAX else []
+        plans += [("cluster", c) for c in lax_eigh.CLUSTER_SIZES
+                  if lax_eigh.cluster_fits(m, dt, vec, c)]
+        for plan in plans:
+            w, V, s = lax_eigh._jacobi_cuda(A, sweeps, vec, 0, plan)
+            if not (same_bits(w, w0) and (not vec or same_bits(V, V0))
+                    and torch.equal(s, s0)):
+                fail(f"K12 {plan} at {k} x {m} {dt} is not bit-equal to "
+                     f"its plain version")
+            times[plan_label(plan)] = cuda_ms(
+                lambda: lax_eigh._jacobi_cuda(A, sweeps, vec, 0, plan), reps)
+        chosen = lax_eigh.jacobi_plan(m, dt, vec, k, lax_eigh._sm_count(dev))
+        out.append(dict(n=m, dtype=str(dt), batch=k, vectors=vec,
+                        sweeps=int(s0), ms=times, plan=plan_label(chosen),
+                        fastest=min(times, key=times.get)))
+    print("K12 plans (bit-equal, ms): " + json.dumps(out), flush=True)
+
+
+# K12's three rows (kernel-table name, case label): each timed at its
+# case, with the launches of that case's variant over the run's paths
+K12_ROWS = (("jacobi_eigh_f32 n=162", "arch0 f32 eigh"),
+            ("jacobi_eigh_f32 n=322", "trto3 f32 eigh"),
+            ("jacobi_eigh n=162", "arch0 f64 eigh"))
+
+
 def check_jacobi(dev, gen):
-    """K12 and K13 against their plain versions at the solves' shapes:
-    arch0's PSD bucket (order 161, padded to 162) in f32 with vectors at
-    the full budget and without at the coarse budget, and in f64 with
-    vectors (no card solve reaches the f64 build); control07's order-128
-    superblock in f32; trto3's order-321 bucket in f32 (the device-memory
-    variant); a padded multi-bucket batch (buckets (3, 7), (1, 12), (2, 4)
-    in one batch of order 12); 2500 blocks of order 4 (sdp5k's); a batch
-    holding a NaN, which must come back NaN after the two unconditional
-    sweeps; K13 at orders 8 and 60.  Returns the four kernels' rows,
-    each timed at its first case."""
+    """K12 and K13 against their plain versions at the solves' shapes, K12
+    bit for bit and in sweeps: arch0's PSD bucket (order 161, padded to
+    162) in f32 with vectors at the full budget and without at the coarse
+    budget, and in f64 with vectors (no card solve reaches the f64
+    build); control07's order-128 superblock in f32; trto3's order-321
+    bucket in f32 (a cluster of CTAs); order 545 in f32 with vectors at
+    the coarse budget, beyond the largest cluster's capacity (the
+    device-memory variant); a padded multi-bucket batch (buckets (3, 7),
+    (1, 12), (2, 4) in one batch of order 12); 2500 blocks of order 4
+    (sdp5k's); a batch of order 12 holding a NaN (one block) and one
+    matrix of order 161 holding a NaN (a cluster of CTAs), each of which
+    must come back NaN after the two unconditional sweeps; K13 at
+    orders 8 and 60.  Returns K12's
+    three rows (K12_ROWS, each with its variant's launch key under
+    "count") and K13's two, each K13 build's timed at its first case."""
     from sedumi_tpu_torch import lax_eigh
     from sedumi_tpu_torch.linalg_ops import _pad_stack
 
-    F32, F64 = torch.float32, torch.float64
     C64, C128 = torch.complex64, torch.complex128
     sw = lax_eigh._sweeps_for
     csw = lax_eigh.coarse_sweeps_for
@@ -933,6 +1018,7 @@ def check_jacobi(dev, gen):
     def case(label, A, sweeps, vectors, time_it=True):
         line = jacobi_case(label, A.to(dev), sweeps, vectors, time_it)
         lines.setdefault(line["kernel"], line)
+        lines[label] = line
         worst[line["kernel"]] = max(worst.get(line["kernel"], 0.0),
                                     line["max_abs_err"])
         return line
@@ -942,10 +1028,14 @@ def check_jacobi(dev, gen):
          csw(161, F32), False)
     case("arch0 f64 eigh", nt_like(1, 161, F64, gen), sw(161, F64), True)
     case("control07 f32 eigh", nt_like(1, 128, F32, gen), sw(128, F32), True)
-    case("trto3 f32 eigh (device memory)", nt_like(1, 321, F32, gen),
-         sw(321, F32), True)
-    if lax_eigh.smem_bytes(322, F32, True) <= lax_eigh.SMEM_MAX:
-        fail("trto3's order-322 batch should take the device-memory variant")
+    line = case("trto3 f32 eigh", nt_like(1, 321, F32, gen), sw(321, F32),
+                True)
+    if ":cluster" not in line["variant"]:
+        fail("trto3's order-322 batch should take a cluster of CTAs")
+    line = case("beyond the clusters f32 eigh coarse",
+                nt_like(1, 545, F32, gen), csw(545, F32), True, time_it=False)
+    if ":device@" not in line["variant"]:
+        fail("order 546 with vectors should take the device-memory variant")
     mats = [nt_like(k, d, F32, gen) for k, d in ((3, 7), (1, 12), (2, 4))]
     case("padded multi-bucket f32 eigh", _pad_stack(mats)[0], sw(12, F32),
          True)
@@ -955,28 +1045,43 @@ def check_jacobi(dev, gen):
     line = case("NaN batch f32", A, sw(12, F32), True, time_it=False)
     if line["sweeps"] != 2:
         fail(f"the NaN batch ran {line['sweeps']} sweeps, not 2")
+    # the cluster variant's NaN: its sweep-end ratio is reduced over the
+    # CTAs and its rows move by DSMEM stores
+    A = nt_like(1, 161, F32, gen)
+    A[0, 2, 5] = float("nan")
+    line = case("NaN order 161 f32", A, sw(161, F32), True, time_it=False)
+    if line["sweeps"] != 2 \
+            or f":cluster{lax_eigh.MAX_CLUSTER}@" not in line["variant"]:
+        fail(f"the NaN matrix of order 161 ran {line['sweeps']} sweeps "
+             f"under {line['variant']}, not 2 under "
+             f"{lax_eigh.MAX_CLUSTER} CTAs")
     for dt in (C128, C64):
         rdt = lax_eigh._real_dtype(dt)
         case(f"herm {dt} n=60", nt_like(2, 60, dt, gen), sw(60, rdt), True)
         case(f"herm {dt} n=8", nt_like(4, 8, dt, gen), sw(8, rdt), True)
-    rows = []
-    for name, replaces in (("jacobi_eigh", "sedumi_tpu/lax_eigh.py:49"),
-                           ("jacobi_eigh_f32", "sedumi_tpu/lax_eigh.py:49"),
-                           ("jacobi_eigh_herm", "sedumi_tpu/lax_eigh.py:187"),
-                           ("jacobi_eigh_herm_c64",
-                            "sedumi_tpu/lax_eigh.py:187")):
-        line = lines[name]
-        src = "jacobi_herm.cu" if "herm" in name else "jacobi_eigh.cu"
-        rows.append(dict(name=name, route="cuda",
-                         source=f"sedumi_tpu_torch/csrc/{src}",
-                         replaces=replaces,
-                         max_abs_err=worst[name],
-                         ms=line["ms"], plain_ms=line["plain_ms"],
-                         bound_ms=line["bound_ms"],
-                         bound_by=line["bound_by"],
-                         library_ms=line["library_ms"]))
+
+    check_k12_plans(dev, gen)
+
+    def row(name, line, replaces, src, count):
+        return dict(name=name, route="cuda",
+                    source=f"sedumi_tpu_torch/csrc/{src}",
+                    replaces=replaces, count=count,
+                    max_abs_err=worst[line["kernel"]],
+                    ms=line["ms"], plain_ms=line["plain_ms"],
+                    bound_ms=line["bound_ms"], bound_by=line["bound_by"],
+                    library_ms=line["library_ms"])
+
+    rows = [row(name, lines[label], "sedumi_tpu/lax_eigh.py:49",
+                "jacobi_eigh.cu", lines[label]["variant"])
+            for name, label in K12_ROWS]
+    rows += [row(name, lines[name], "sedumi_tpu/lax_eigh.py:187",
+                 "jacobi_herm.cu", name)
+             for name in ("jacobi_eigh_herm", "jacobi_eigh_herm_c64")]
     print("K12/K13 rows timed at: " + ", ".join(
-        f"{r['name']} {lines[r['name']]['case']}" for r in rows), flush=True)
+        f"{name} {label} ({lines[label]['variant']})"
+        for name, label in K12_ROWS) + ", " + ", ".join(
+        f"{r['name']} {lines[r['name']]['case']}" for r in rows[3:]),
+        flush=True)
     return rows
 
 
@@ -1914,6 +2019,16 @@ def run_mesh(name, shape, nprocs, cx_unsharded=None):
     return counts
 
 
+def add_counts(total: dict) -> None:
+    """Adds this path's launches (kernels.LAUNCHES, and K12's per variant,
+    kernels.VARIANT_LAUNCHES) into `total`."""
+    from sedumi_tpu_torch import kernels
+
+    for counts in (kernels.LAUNCHES, kernels.VARIANT_LAUNCHES):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one card", file=sys.stderr)
@@ -1971,7 +2086,9 @@ def main() -> None:
     counts, _ = run_example(with_zero_row(load_example("nb")), True)
     if counts.get("ldl_masked", 0) == 0:
         fail("nb+zero-row: the masked-LDL' fallback never ran")
-    total = dict(kernels.LAUNCHES)
+    # launches per kernel build, and K12's per variant, over the paths
+    total = {}
+    add_counts(total)
     # the f64 phases take the library eigensolver, as the reference's
     # host phases do
     if any(total[k] for k in JACOBI_NAMES):
@@ -2017,8 +2134,7 @@ def main() -> None:
     print(f"mixed-ladder path: {time.time() - t_mixed:.1f}s", flush=True)
     if any(kernels.LAUNCHES[k] for k in OFF_PATH):
         fail("an f64 or complex Jacobi build launched on the mixed path")
-    for k, v in kernels.LAUNCHES.items():
-        total[k] += v
+    add_counts(total)
     torch.cuda.empty_cache()
 
     # the sparse path, its counts zeroed just before and read just after
@@ -2033,8 +2149,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     if any(kernels.LAUNCHES[k] for k in JACOBI_NAMES):
         fail("a Jacobi kernel launched on the sparse f64 path")
-    for k, v in kernels.LAUNCHES.items():
-        total[k] += v
+    add_counts(total)
 
     # the mixed/f32 ladder on the sparse engine, its counts zeroed just
     # before and read just after: every solve takes K8-f32 to K10-f32 on
@@ -2057,8 +2172,7 @@ def main() -> None:
     if any(kernels.LAUNCHES[k] for k in OFF_PATH):
         fail("an f64 or complex Jacobi build launched on the mixed sparse "
              "path")
-    for k, v in kernels.LAUNCHES.items():
-        total[k] += v
+    add_counts(total)
 
     # the mesh path (pars.mesh_shape), its counts zeroed in every rank
     # just before its solve and read just after; this process launches
@@ -2084,10 +2198,14 @@ def main() -> None:
     rows += check_tile_kernels({k: plans[k] for k in ("lp20k", "sdp1200")},
                                dev, gen, rng, dtype=torch.float32)
     check_library_rows(dev, gen, rng, plans)
+    print("K12 launches per variant over the paths: " + json.dumps(
+        {k: v for k, v in total.items() if ":" in k}), flush=True)
     for row in rows:
-        row["launches"] = total[row["name"]]
-        if row["launches"] == 0 and row["name"] not in OFF_PATH:
-            fail(f"kernel {row['name']} never launched on the path")
+        count = row.pop("count", row["name"])
+        row["launches"] = total.get(count, 0)
+        if row["launches"] == 0 and count.split(":")[0] not in OFF_PATH:
+            fail(f"kernel {row['name']} ({count}) never launched on the "
+                 f"path")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,6 +1,9 @@
 // The batched round-robin cyclic Jacobi sweep shared by K12
 // (jacobi_eigh.cu, real symmetric) and K13 (jacobi_herm.cu, complex
 // Hermitian); see lax_eigh.py for the algorithm and its plain version.
+// K13 runs both of its variants below; K12 runs its own fused block and
+// cluster sweeps (jacobi_eigh.cu) and takes the device-memory variant
+// here only beyond the largest cluster's capacity.
 //
 // One block per matrix, one launch per sweep.  A round is three steps
 // between barriers: the threads k < n/2 compute the rotation of pair k

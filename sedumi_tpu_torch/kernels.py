@@ -33,8 +33,9 @@ NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 # A, V, schedule, ratio, done, sweeps run; batch, groups, n, sweeps,
-# vectors; eps; shared-memory variant
+# vectors; eps; K13: shared-memory variant; K12: variant, cluster size
 _JACOBI_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _P]
+_JACOBI_REAL_ARGS = _JACOBI_ARGS[:-1] + [_I, _P]
 # source file -> {C launch function: argtypes}
 SOURCES = {
     "dd_residual.cu": {
@@ -82,8 +83,8 @@ SOURCES = {
         "df_matvec_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "df_vecmat_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P]},
     "jacobi_eigh.cu": {
-        "jacobi_eigh_f64_launch": _JACOBI_ARGS,
-        "jacobi_eigh_f32_launch": _JACOBI_ARGS},
+        "jacobi_eigh_f64_launch": _JACOBI_REAL_ARGS,
+        "jacobi_eigh_f32_launch": _JACOBI_REAL_ARGS},
     "jacobi_herm.cu": {
         "jacobi_herm_c128_launch": _JACOBI_ARGS,
         "jacobi_herm_c64_launch": _JACOBI_ARGS},
@@ -108,12 +109,17 @@ LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "dist_panel_chol": 0, "dist_trisolve_fwd": 0,
             "dist_trisolve_bwd_contrib": 0, "dist_trisolve_bwd_solve": 0}
 
+# K12's launches per variant and order (lax_eigh.variant_key), beside
+# LAUNCHES
+VARIANT_LAUNCHES: dict[str, int] = {}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    VARIANT_LAUNCHES.clear()
 
 
 def _nvcc() -> str:

@@ -22,7 +22,10 @@ G[qp] = -s annihilates A[p, q] by the stable half-angle formulas
 jacobi_eigh/jacobi_eigvalsh (kernel K12, csrc/jacobi_eigh.cu, f64 and f32
 builds) and jacobi_eigh_herm (kernel K13, csrc/jacobi_herm.cu, complex128
 and complex64) launch the kernels on CUDA tensors and raise if they
-cannot; on CPU tensors they run the plain-PyTorch versions below.
+cannot; on CPU tensors they run the plain-PyTorch versions below.  K12
+runs one of three variants, which jacobi_plan picks from the order, the
+dtype and the batch: one block per matrix, a thread-block cluster per
+matrix, or (beyond the largest cluster's capacity) device memory.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ C64, C128 = torch.complex64, torch.complex128
 
 # the dynamic shared memory one block may use on an H100 (227 KB)
 SMEM_MAX = 232448
+# an H100 SXM's streaming multiprocessors: the plan's default card
+NUM_SMS = 132
 
 
 def _round_robin_schedule(n: int) -> np.ndarray:
@@ -56,6 +61,24 @@ def _round_robin_schedule(n: int) -> np.ndarray:
         rounds.append(pairs)
         players = [players[0]] + [players[-1]] + players[1:-1]
     return np.asarray(rounds, np.int32)
+
+
+def closed_form_schedule(n: int) -> np.ndarray:
+    """_round_robin_schedule(n) from its closed form, as K12's kernels
+    compute it: in round r, slot 0 holds player 0 and slot s >= 1 player
+    (s - 1 - r) mod (n - 1) + 1 (the tail turns right by one a round);
+    pair k is slots k and n-1-k."""
+    assert n % 2 == 0
+    m = n - 1
+    r = np.arange(m)[:, None]
+    k = np.arange(n // 2)[None, :]
+
+    def player(s):
+        return np.where(s == 0, 0, (s - 1 - r + m) % m + 1)
+
+    a, b = player(k), player(n - 1 - k)
+    return np.stack([np.minimum(a, b), np.maximum(a, b)], -1).astype(
+        np.int32)
 
 
 def _sweeps_for(n: int, dtype=None) -> int:
@@ -187,14 +210,9 @@ def _start(A: torch.Tensor, with_vectors: bool):
     return torch.cat([A, eye], dim=-2)
 
 
-def _jacobi_plain(A: torch.Tensor, sweeps: int, with_vectors: bool,
-                  lead: int = 0):
-    """Plain-PyTorch K12: (w unsorted, V or None, sweeps run per group)
-    for real symmetric A [..., n, n] (reference lax_eigh.py:49-165)."""
-    n0 = A.shape[-1]
-    AV = _start(A, with_vectors)
-    n = AV.shape[-1]
-    ueps = eps_for(A.dtype)
+def _real_rotations(ueps: float):
+    """_sweep_loop's angle_fn for real symmetric A: the rotations of the
+    pairs (p, q) as the row factors (c, s, s) and column factors."""
 
     def angle_fn(A, p, q):
         diag = torch.diagonal(A, dim1=-2, dim2=-1)
@@ -203,7 +221,18 @@ def _jacobi_plain(A: torch.Tensor, sweeps: int, with_vectors: bool,
         cT, sT = c[..., None, :], s[..., None, :]
         return cb, sb, sb, cT, sT, sT
 
-    nsw = _sweep_loop(AV, n, sweeps, lead, ueps, angle_fn)
+    return angle_fn
+
+
+def _jacobi_plain(A: torch.Tensor, sweeps: int, with_vectors: bool,
+                  lead: int = 0):
+    """Plain-PyTorch K12: (w unsorted, V or None, sweeps run per group)
+    for real symmetric A [..., n, n] (reference lax_eigh.py:49-165)."""
+    n0 = A.shape[-1]
+    AV = _start(A, with_vectors)
+    n = AV.shape[-1]
+    ueps = eps_for(A.dtype)
+    nsw = _sweep_loop(AV, n, sweeps, lead, ueps, _real_rotations(ueps))
     w = torch.diagonal(AV[..., :n, :], dim1=-2, dim2=-1)[..., :n0]
     return w, (AV[..., n:, :][..., :n0, :n0] if with_vectors else None), nsw
 
@@ -251,6 +280,15 @@ _KERNELS = {
           "jacobi_eigh_herm_c64"),
 }
 _SCHED: dict = {}
+# K12's launches per variant and order, beside kernels.LAUNCHES' per
+# build, e.g. "jacobi_eigh_f32:cluster16@322"; cleared with it by
+# kernels.reset_launch_counts
+VARIANT_LAUNCHES = kernels.VARIANT_LAUNCHES
+
+
+def variant_key(name: str, variant: str, cluster: int, n: int) -> str:
+    """VARIANT_LAUNCHES' key of one K12 build, plan and (even) order."""
+    return f"{name}:{variant}{cluster if variant == 'cluster' else ''}@{n}"
 
 
 def _schedule(n: int, device) -> torch.Tensor:
@@ -263,11 +301,11 @@ def _schedule(n: int, device) -> torch.Tensor:
 
 
 def smem_bytes(n: int, dtype: torch.dtype, with_vectors: bool) -> int:
-    """Dynamic shared memory of the kernel's shared-memory variant at even
-    order n: A (and V) with rows padded to n + 1, the round's rotations (n
-    elements, which the final reduction's 64 reals reuse) and its pivot
-    pairs (n int16).  The kernel takes the device-memory variant above
-    SMEM_MAX: with vectors above order 168 in f32, 118 in f64 and
+    """Dynamic shared memory of one block holding a whole matrix of even
+    order n (K12's block variant, K13's shared-memory variant): A (and V)
+    with rows padded to n + 1, the round's rotations (n elements, which
+    the final reduction's 64 reals reuse) and its pivot pairs (n int16).
+    At most SMEM_MAX with vectors up to order 168 in f32, 118 in f64 and
     complex64, 84 in complex128."""
     esize = torch.empty((), dtype=dtype).element_size()
     rsize = torch.empty((), dtype=_real_dtype(dtype)).element_size()
@@ -275,11 +313,96 @@ def smem_bytes(n: int, dtype: torch.dtype, with_vectors: bool) -> int:
     return mats + max(n * esize, 64 * rsize) + 2 * n
 
 
+# K12's variants, numbered as csrc/jacobi_eigh.cu numbers them
+VARIANTS = ("device", "block", "cluster")
+# cluster sizes; above 8 CTAs the kernel sets the non-portable attribute
+CLUSTER_SIZES = (2, 4, 8, 16)
+MAX_CLUSTER = CLUSTER_SIZES[-1]
+# measured on the card (chip_smoke.check_k12_plans, PERF.md section 6):
+# by element size, the order from which 16 CTAs beat one block on a
+# matrix alone (f32 from 100, f64 from 80); and where one block holds the
+# matrix, the fewest CTAs that beat it (2 CTAs trail one block at every
+# order and batch measured)
+CLUSTER_MIN_N = {4: 100, 8: 80}
+CLUSTER_MIN_CTAS = 4
+
+
+def _up16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def cluster_smem_bytes(n: int, dtype: torch.dtype, with_vectors: bool,
+                       cluster: int) -> int:
+    """Dynamic shared memory of one CTA of K12's cluster variant at even
+    order n (csrc/jacobi_eigh.cu ClusterLayout), each part on 16 bytes:
+    the rows of its at most P = ceil(n/2 / C) pairs twice (read one copy,
+    write the other) and its at most S = ceil(n / C) rows of V, padded to
+    n + 1; the rotations of two rounds (2 max(n, 64) reals); a pointer
+    per own row (2 P) and an int per own pair (P); 2 MAX_CLUSTER partial
+    sums."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    h = n // 2
+    P, S = -(-h // cluster), -(-n // cluster)
+    o = _up16((4 * P + (S if with_vectors else 0)) * (n + 1) * esize)
+    o = _up16(o + 2 * max(n, 64) * esize)
+    o = _up16(o + 16 * P)
+    o = _up16(o + 4 * P)
+    return o + 2 * MAX_CLUSTER * esize
+
+
+def cluster_fits(n: int, dtype: torch.dtype, with_vectors: bool,
+                 cluster: int) -> bool:
+    """Whether C CTAs hold a matrix of even order n: each owns at least
+    one pair, within SMEM_MAX."""
+    return (cluster <= n // 2
+            and cluster_smem_bytes(n, dtype, with_vectors, cluster)
+            <= SMEM_MAX)
+
+
+def jacobi_plan(n: int, dtype: torch.dtype, with_vectors: bool, batch: int,
+                sms: int = NUM_SMS) -> tuple[str, int]:
+    """(variant, cluster size) of K12 for a batch of `batch` real matrices
+    of even order n.
+
+    * Where no cluster holds the matrix (order 2, where a second CTA
+      would own no pair; beyond MAX_CLUSTER CTAs' capacity): one block
+      if it does, else the device-memory variant.
+    * Otherwise the fewest CTAs that hold the matrix, doubled (up to
+      MAX_CLUSTER) while batch x C still fits the card's SMs.
+    * But one block where it holds the matrix and the order is below
+      CLUSTER_MIN_N, or the cluster would have fewer than
+      CLUSTER_MIN_CTAS CTAs or need more CTAs than the card has SMs.
+    """
+    if n < 2 or n % 2:
+        raise ValueError(f"Jacobi plan: order {n} is not even")
+    fits = [c for c in CLUSTER_SIZES
+            if cluster_fits(n, dtype, with_vectors, c)]
+    block = smem_bytes(n, dtype, with_vectors) <= SMEM_MAX
+    if not fits:
+        return ("block", 1) if block else ("device", 1)
+    esize = torch.empty((), dtype=dtype).element_size()
+    if block and n < CLUSTER_MIN_N[esize]:
+        return "block", 1
+    c = fits[0]
+    while (c < MAX_CLUSTER and 2 * c * batch <= sms
+           and cluster_fits(n, dtype, with_vectors, 2 * c)):
+        c *= 2
+    if block and (c < CLUSTER_MIN_CTAS or c * batch > sms):
+        return "block", 1
+    return "cluster", c
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _jacobi_cuda(A: torch.Tensor, sweeps: int, with_vectors: bool,
-                 lead: int = 0):
+                 lead: int = 0, plan: tuple[str, int] | None = None):
     """K12/K13 on the card: (w, V or None, sweeps run per group).  One
-    block per matrix, one launch per sweep; the early exit is a per-group
-    flag on the card, so the host never synchronises."""
+    launch per sweep; the early exit is a per-group flag on the card, so
+    the host never synchronises.  K12 runs `plan` (default jacobi_plan's
+    choice for this batch on this card); a variant the card refuses
+    raises."""
     if A.dtype not in _KERNELS:
         raise ValueError(f"Jacobi kernel: dtype {A.dtype} is not built")
     src, fn, name = _KERNELS[A.dtype]
@@ -295,15 +418,28 @@ def _jacobi_cuda(A: torch.Tensor, sweeps: int, with_vectors: bool,
     ratio = torch.empty(batch, dtype=_real_dtype(A.dtype), device=A.device)
     done = torch.zeros(max(groups, 1), dtype=torch.int32, device=A.device)
     nsw = torch.zeros_like(done)
-    sched = _schedule(n, A.device)
     kernels.check_cuda(work, V)
-    if batch:
+    eps = eps_for(_real_dtype(A.dtype))
+    if batch and A.is_complex():
         kernels.launch(src, fn, work.data_ptr(), V.data_ptr(),
-                       sched.data_ptr(), ratio.data_ptr(), done.data_ptr(),
-                       nsw.data_ptr(), batch, groups, n, sweeps,
-                       int(with_vectors), eps_for(_real_dtype(A.dtype)),
+                       _schedule(n, A.device).data_ptr(), ratio.data_ptr(),
+                       done.data_ptr(), nsw.data_ptr(), batch, groups, n,
+                       sweeps, int(with_vectors), eps,
                        int(smem_bytes(n, A.dtype, with_vectors) <= SMEM_MAX))
         kernels.LAUNCHES[name] += 1
+    elif batch:
+        variant, cluster = plan or jacobi_plan(n, A.dtype, with_vectors,
+                                               batch, _sm_count(A.device))
+        # only the device-memory variant reads the table
+        sched = _schedule(n, A.device).data_ptr() if variant == "device" \
+            else None
+        kernels.launch(src, fn, work.data_ptr(), V.data_ptr(), sched,
+                       ratio.data_ptr(), done.data_ptr(), nsw.data_ptr(),
+                       batch, groups, n, sweeps, int(with_vectors), eps,
+                       VARIANTS.index(variant), cluster)
+        kernels.LAUNCHES[name] += 1
+        key = variant_key(name, variant, cluster, n)
+        VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
     work = work.reshape(P.shape)
     w = torch.diagonal(work, dim1=-2, dim2=-1)[..., :n0]
     if A.is_complex():

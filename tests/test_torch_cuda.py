@@ -282,45 +282,105 @@ def test_mixed_ladder_nb_witness(cuda):
 # ------------------------------------------------ K12 / K13 (Jacobi)
 
 
-def jacobi_pair(A, sweeps, vectors):
-    """(kernel, plain) results on the card; the kernel launched once."""
+def jacobi_pair(A, sweeps, vectors, plan=None):
+    """(kernel, plain) results on the card; the kernel launched once (K12
+    with `plan` if given, else the plan of the dispatch)."""
     name = lax_eigh._KERNELS[A.dtype][2]
     plain = lax_eigh._jacobi_herm_plain if A.is_complex() \
         else lax_eigh._jacobi_plain
     n0 = kernels.LAUNCHES[name]
-    got = lax_eigh._jacobi(A, sweeps, vectors)
+    got = lax_eigh._jacobi_cuda(A, sweeps, vectors, 0, plan) if plan \
+        else lax_eigh._jacobi(A, sweeps, vectors)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == n0 + 1
     return got, plain(A, sweeps, vectors)
 
 
-def check_jacobi_case(A, sweeps, vectors):
+def check_jacobi_case(A, sweeps, vectors, plan=None):
     """The kernel against its plain version at chip_smoke's tolerance
-    (jacobi_compare states it); prints the comparison."""
-    got, want = jacobi_pair(A, sweeps, vectors)
+    (jacobi_compare states it), and K12 bit for bit with the plain
+    version's sweep count; prints the comparison."""
+    got, want = jacobi_pair(A, sweeps, vectors, plan)
     res = jacobi_compare(A, got, want, sweeps, vectors)
     print(json.dumps({"n": A.shape[-1], "dtype": str(A.dtype),
-                      "vectors": vectors, **res}))
+                      "vectors": vectors, "plan": plan, **res}))
     assert res["ok"], res
+    if not A.is_complex():
+        assert res["bit_equal"], res
+        assert torch.equal(got[2], want[2]), res
     return got, want
 
 
+def k12_plans(n, dtype, vectors):
+    """K12's plans at even order n: for a batch of two (a cluster spread
+    over the card) and for one that fills the card (one block or the
+    fewest CTAs that hold the matrix)."""
+    sms = lax_eigh._sm_count(torch.device("cuda"))
+    return sorted({lax_eigh.jacobi_plan(n, dtype, vectors, b, sms)
+                   for b in (2, sms // 2 + 1)})
+
+
+# both sides of every edge of jacobi_plan, run with vectors at the full
+# budget and without at the coarse budget.  With vectors: one block up
+# to 168 in f32 and 118 in f64; 2, 4, 8 and 16 CTAs up to 194, 272, 384
+# and 544 in f32 and 136, 192, 272 and 384 in f64; device memory beyond.
+# Without: one block up to 238 in f32 and 168 in f64; 4, 8 and 16 CTAs
+# up to 336, 472 and 672 in f32 and 236, 334 and 466 in f64; device
+# memory beyond.  A batch of two spreads over a cluster from
+# CLUSTER_MIN_N: 100 in f32, 80 in f64.
+K12_ORDERS = {torch.float32: [2, 3, 8, 17, 64, 98, 100, 110, 112, 162, 168,
+                              170, 194, 196, 238, 240, 272, 274, 322, 336,
+                              338, 384, 386, 472, 474, 544, 546, 672, 674],
+              torch.float64: [2, 3, 17, 64, 78, 80, 118, 120, 136, 138, 162,
+                              168, 170, 192, 194, 236, 238, 272, 274, 322,
+                              334, 336, 384, 386, 466, 468]}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n", [2, 3, 8, 17, 64, 118, 120, 122, 162, 168,
-                               170, 172, 322])
+@pytest.mark.parametrize("dtype,n", [(dt, n) for dt, ns in K12_ORDERS.items()
+                                     for n in ns])
 def test_jacobi_eigh_kernel(cuda, n, dtype):
-    """K12 against its plain version on both sides of the shared-memory
-    edges (with vectors, rows padded to n + 1: f64 118 in, 120 out; f32
-    168 in, 170 out; without: f64 168 in, 170 out) and on the
-    device-memory variant, at the full budget with vectors and the
+    """K12 against its plain version, bit for bit and in sweeps, in each
+    plan it takes for a small and a full batch, on both sides of every
+    variant edge (K12_ORDERS), at the full budget with vectors and the
     coarse budget without."""
     A = nt_like(2, n, dtype, torch.Generator().manual_seed(n)).to(cuda)
+    m = n + n % 2
     for sweeps, vectors in ((lax_eigh._sweeps_for(n, dtype), True),
                             (lax_eigh.coarse_sweeps_for(n, dtype), False)):
-        check_jacobi_case(A, sweeps, vectors)
+        for plan in k12_plans(m, dtype, vectors):
+            check_jacobi_case(A, sweeps, vectors, plan)
     with pytest.raises(ValueError):
         lax_eigh._jacobi(A.to(torch.float16), 2, False)
+
+
+@pytest.mark.cuda
+def test_jacobi_cluster_batch_beyond_residency(cuda):
+    """A batch of 40 matrices of order 322 in f32 (trto3's order) takes
+    eight CTAs each: 320 CTAs, more than the card holds at once, so the
+    clusters run in waves; bit for bit against the plain version."""
+    A = nt_like(40, 322, torch.float32, torch.Generator().manual_seed(40))
+    sms = lax_eigh._sm_count(cuda)
+    plan = lax_eigh.jacobi_plan(322, torch.float32, True, 40, sms)
+    assert plan[0] == "cluster" and 40 * plan[1] > sms
+    check_jacobi_case(A.to(cuda), lax_eigh._sweeps_for(322, torch.float32),
+                      True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [("block", 1), ("cluster", 2),
+                                  ("cluster", 32)])
+def test_jacobi_refused_plan_raises(cuda, plan):
+    """A plan the card refuses (one block or two CTAs cannot hold order
+    322 with vectors; no cluster has 32 CTAs) raises, and nothing falls
+    back to another variant or to the plain version."""
+    A = nt_like(1, 322, torch.float32, torch.Generator().manual_seed(3))
+    before = dict(lax_eigh.VARIANT_LAUNCHES)
+    n0 = kernels.LAUNCHES["jacobi_eigh_f32"]
+    with pytest.raises(RuntimeError):
+        lax_eigh._jacobi_cuda(A.to(cuda), 2, True, 0, plan)
+    assert kernels.LAUNCHES["jacobi_eigh_f32"] == n0
+    assert lax_eigh.VARIANT_LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -337,7 +397,8 @@ def test_jacobi_herm_kernel(cuda, n, dtype):
 @pytest.mark.cuda
 def test_jacobi_nan_and_multi_bucket(cuda):
     """A batch holding a NaN stops after the two unconditional sweeps
-    with NaN in that entry only.  The padded multi-bucket batch: the
+    with NaN in that entry only, in one block (order 12) and in a cluster
+    of CTAs (one matrix of order 161).  The padded multi-bucket batch: the
     kernel against its plain version on the padded batch, and
     linalg_ops.eigh_multi (Jacobi by default on the card) returns that
     batch's corners per bucket, bit for bit (the same kernel on the same
@@ -363,6 +424,17 @@ def test_jacobi_nan_and_multi_bucket(cuda):
         assert torch.equal(w, w0[off:off + k, :d])
         assert torch.equal(V, V0[off:off + k, :d, :d])
         off += k
+    # the cluster variant: its sweep-end ratio is reduced over the CTAs
+    # and its rows move by DSMEM stores
+    A = nt_like(1, 161, torch.float32, gen)
+    A[0, 2, 5] = float("nan")
+    plan = ("cluster", lax_eigh.MAX_CLUSTER)
+    assert lax_eigh.jacobi_plan(162, A.dtype, True, 1,
+                                lax_eigh._sm_count(cuda)) == plan
+    got, want = check_jacobi_case(
+        A.to(cuda), lax_eigh._sweeps_for(161, A.dtype), True, plan)
+    assert int(got[2]) == 2 and int(want[2]) == 2
+    assert bool(torch.isnan(got[0]).all())
 
 
 def arch0_launches(device, dtype):

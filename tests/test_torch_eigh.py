@@ -82,6 +82,206 @@ def test_schedule_and_budgets_match_reference():
                 jle.coarse_sweeps_for(n, dj)
 
 
+def test_closed_form_schedule_matches_table():
+    """K12's kernels compute each round's pivot pairs from the closed form
+    (slot 0 holds player 0, the tail turns right by one a round) instead
+    of loading the table: the form against _round_robin_schedule."""
+    for n in list(range(2, 130, 2)) + [162, 170, 322, 546]:
+        np.testing.assert_array_equal(tle.closed_form_schedule(n),
+                                      tle._round_robin_schedule(n))
+
+
+# ------------------------------------- K12's fused step, emulated
+
+
+def fused_block_round(A, V, p, q, c, s):
+    """One round as K12's block variant computes it: each 2 x 2 block
+    {p_k, q_k} x {p_l, q_l} of A rotated by rotation k over its rows, then
+    by rotation l over its columns; each row of V by the column
+    rotations."""
+    P, Q, Pl, Ql = p[:, None], q[:, None], p[None, :], q[None, :]
+    ck, sk = c[..., :, None], s[..., :, None]
+    cl, sl = c[..., None, :], s[..., None, :]
+    app, apq = A[..., P, Pl], A[..., P, Ql]
+    aqp, aqq = A[..., Q, Pl], A[..., Q, Ql]
+    rpp, rqp = ck * app - sk * aqp, sk * app + ck * aqp
+    rpq, rqq = ck * apq - sk * aqq, sk * apq + ck * aqq
+    A[..., P, Pl], A[..., P, Ql] = cl * rpp - sl * rpq, sl * rpp + cl * rpq
+    A[..., Q, Pl], A[..., Q, Ql] = cl * rqp - sl * rqq, sl * rqp + cl * rqq
+    vp, vq = V[..., :, p], V[..., :, q]
+    V[..., :, p], V[..., :, q] = cl * vp - sl * vq, sl * vp + cl * vq
+
+
+def colrot(R, pairs, c, s):
+    """R's columns rotated by one round's column rotations (pairs [h, 2],
+    c, s [h]), as the plain version's column step computes them."""
+    out = R.clone()
+    p, q = pairs[:, 0], pairs[:, 1]
+    rp, rq = R[..., p], R[..., q]
+    out[..., p], out[..., q] = c * rp - s * rq, s * rp + c * rq
+    return out
+
+
+def cluster_sweep(A, V, C, ueps):
+    """One sweep as K12's cluster variant computes it on a matrix A (and
+    its V) over C CTAs: CTA c holds the rows of the round's pairs
+    [c h / C, (c+1) h / C) at positions 2 (k - c h / C) + side (side 0:
+    slot k, side 1: slot n-1-k), and stores A' = the round's rows rotated
+    and its columns not yet (the column rotation of round r is applied in
+    round r + 1, from the broadcast rotations, and after the last round);
+    V's rows stay where they are.  Each round: each pair's rotation from
+    its own rows' pivots, then each row column-rotated by the previous
+    round and row-rotated by this one, written to the position (in
+    whichever CTA) of its pair next round.  Returns A and V after the
+    sweep."""
+    n = A.shape[-1]
+    h, m = n // 2, n - 1
+    assert C <= h
+    k = np.arange(h)
+
+    def player(r, t):
+        return np.where(t == 0, 0, np.where(t - r >= 1, t - r, t - r + m))
+
+    def slot(r, x):
+        return np.where(x == 0, 0, np.where(x + r <= m, x + r, x + r - m))
+
+    def place(r, x):
+        """(CTA, position) of row x in round r."""
+        t = slot(r, x)
+        kk = np.minimum(t, n - 1 - t)
+        c = ((kk + 1) * C - 1) // h
+        return (torch.as_tensor(c),
+                torch.as_tensor(2 * (kk - c * h // C) + (t > n - 1 - t)))
+
+    # the two rows of pair k, as (CTA, position) index tensors
+    ka, kb = place(0, player(0, k)), place(0, player(0, n - 1 - k))
+    bufs = torch.zeros(C, 2 * -(-h // C), n, dtype=A.dtype)
+    bufs[ka] = A[player(0, k)]
+    bufs[kb] = A[player(0, n - 1 - k)]
+    V = V.clone()
+    prev = None
+    for r in range(n - 1):
+        a, b = player(r, k), player(r, n - 1 - k)
+        ra, rb = bufs[place(r, a)], bufs[place(r, b)]
+        if prev is not None:
+            ra, rb = colrot(ra, *prev), colrot(rb, *prev)
+        isp = torch.as_tensor(a < b)[:, None]
+        rp, rq = torch.where(isp, ra, rb), torch.where(isp, rb, ra)
+        p = torch.as_tensor(np.minimum(a, b))
+        q = torch.as_tensor(np.maximum(a, b))
+        kt = torch.as_tensor(k)
+        _, c_r, s_r = tle._angle(rp[kt, p], rq[kt, q], rp[kt, q], ueps)
+        cb, sb = c_r[:, None], s_r[:, None]
+        nxt = torch.zeros_like(bufs)
+        nxt[place(r + 1, p.numpy())] = cb * rp - sb * rq
+        nxt[place(r + 1, q.numpy())] = sb * rp + cb * rq
+        if prev is not None:
+            V = colrot(V, *prev)
+        bufs = nxt
+        prev = (torch.stack([p, q], -1), c_r, s_r)
+    out = torch.empty_like(A)
+    out[player(0, k)] = colrot(bufs[ka], *prev)
+    out[player(0, n - 1 - k)] = colrot(bufs[kb], *prev)
+    return out, colrot(V, *prev)
+
+
+@pytest.mark.parametrize("kernel", ["block", "cluster"])
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["odd17", "n162", "nan"])
+def test_fused_step_is_the_plain_round_bit_for_bit(case, dt, kernel):
+    """K12's fused 2 x 2-block step (block variant) and its
+    pairs-per-CTA form with the column rotations one round late (cluster
+    variant, with its storage and row moves between CTAs), emulated round
+    by round in torch ops with the closed-form pairs, against
+    _jacobi_plain's row-then-column rounds: after a sweep, all of A and V
+    bit for bit (NaN where the plain version has NaN), at a padded odd
+    order, at order 162 and on a batch with a NaN."""
+    rng = np.random.default_rng({"odd17": 17, "n162": 162, "nan": 12}[case])
+    k, n0 = {"odd17": (2, 17), "n162": (1, 162), "nan": (3, 12)}[case]
+    A = sym(rng, k, n0).astype(dt)
+    if case == "nan":
+        A[1, 2, 5] = A[1, 5, 2] = np.nan
+    AV = tle._start(torch.as_tensor(A), True)
+    n = AV.shape[-1]
+    ueps = float(np.finfo(dt).eps)
+    want = AV.clone()
+    tle._sweep_loop(want, n, 1, 0, ueps, tle._real_rotations(ueps))
+    Ak, Vk = AV[..., :n, :].clone(), AV[..., n:, :].clone()
+    if kernel == "block":
+        sched = torch.as_tensor(tle.closed_form_schedule(n),
+                                dtype=torch.long)
+        for r in range(n - 1):
+            p, q = sched[r, :, 0], sched[r, :, 1]
+            d = torch.diagonal(Ak, dim1=-2, dim2=-1)
+            _, c, s = tle._angle(d[..., p], d[..., q], Ak[..., p, q], ueps)
+            fused_block_round(Ak, Vk, p, q, c, s)
+    else:
+        # the cluster sizes K12 takes at these orders: 2 and 8 CTAs
+        C = 2 if n < 64 else 8
+        for i in range(Ak.shape[0]):
+            Ak[i], Vk[i] = cluster_sweep(Ak[i], Vk[i], C, ueps)
+    got = torch.cat([Ak, Vk], dim=-2)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(nan.any()) == (case == "nan")
+    assert torch.equal(got[~nan], want[~nan])
+
+
+def test_jacobi_plan_edges():
+    """K12's plan at each edge: one block's shared memory (f32 with
+    vectors up to 168, f64 up to 118), each cluster size's capacity at a
+    batch that fills the card (the fewest CTAs that hold the matrix), the
+    largest cluster's capacity (then device memory), and the spreading of
+    a small batch over more CTAs."""
+    f32, f64 = torch.float32, torch.float64
+    big = tle.NUM_SMS  # a batch that leaves no SM idle
+    plan = tle.jacobi_plan
+    for dt, vec, block, caps in (
+            (f32, True, 168, {2: 194, 4: 272, 8: 384, 16: 544}),
+            (f64, True, 118, {2: 136, 4: 192, 8: 272, 16: 384}),
+            (f32, False, 238, {4: 336, 8: 472, 16: 672}),
+            (f64, False, 168, {4: 236, 8: 334, 16: 466})):
+        assert tle.smem_bytes(block, dt, vec) <= tle.SMEM_MAX \
+            < tle.smem_bytes(block + 2, dt, vec)
+        assert plan(block, dt, vec, big) == ("block", 1)
+        prev = block
+        for c, cap in caps.items():
+            assert tle.cluster_fits(cap, dt, vec, c)
+            assert not tle.cluster_fits(cap + 2, dt, vec, c)
+            assert plan(prev + 2, dt, vec, big) == ("cluster", c)
+            assert plan(cap, dt, vec, big) == ("cluster", c)
+            prev = cap
+        assert plan(prev + 2, dt, vec, big) == ("device", 1)
+        assert plan(prev + 2, dt, vec, 1) == ("device", 1)
+    # every CTA owns a pair
+    assert not tle.cluster_fits(30, f32, True, 16)
+    assert tle.cluster_fits(32, f32, True, 16)
+    # a batch of one NT bucket spreads over MAX_CLUSTER CTAs; below
+    # CLUSTER_MIN_N (by element size) one block, with or without vectors
+    for n, dt in ((162, f32), (322, f32), (162, f64), (322, f64)):
+        assert plan(n, dt, True, 1) == ("cluster", tle.MAX_CLUSTER)
+    for dt in (f32, f64):
+        n = tle.CLUSTER_MIN_N[torch.empty((), dtype=dt).element_size()]
+        for vec in (True, False):
+            assert plan(n - 2, dt, vec, 1) == ("block", 1)
+            assert plan(n, dt, vec, 1) == ("cluster", tle.MAX_CLUSTER)
+    assert tle.CLUSTER_MIN_N == {4: 100, 8: 80}
+    assert plan(2, f32, True, 1) == ("block", 1)
+    # the batch caps the spread (batch x C <= SMs); one block where it
+    # holds the matrix and the cluster would have fewer than
+    # CLUSTER_MIN_CTAS CTAs or more CTAs than the card has SMs
+    for batch, want in ((8, ("cluster", 16)), (9, ("cluster", 8)),
+                        (17, ("cluster", 4)), (33, ("cluster", 4)),
+                        (34, ("block", 1)), (67, ("block", 1))):
+        assert plan(162, f32, True, batch) == want, batch
+    assert plan(238, f32, False, 33) == ("cluster", 4)
+    assert plan(238, f32, False, 34) == ("block", 1)
+    assert plan(322, f32, True, 40) == ("cluster", 8)
+    assert plan(4, f32, True, 2500) == ("block", 1)
+    with pytest.raises(ValueError):
+        plan(161, f32, True, 1)
+
+
 # ------------------------------------------------ plain K12 / K13 twins
 
 
