@@ -58,8 +58,9 @@
    sdp1200 must launch K2-f32 and K12-f32, lp900+3dense K3-f32.  All but
    lp20k and the 'float32' solve are gated as in 4.
    Then K8-K10 and K2's group layout are held against their plain twins
-   on the plans the f64 solves built (LP 20k and SDP 5k), and K8-f32 to
-   K10-f32 on f32 storage of the LP 20k and SDP 1200 plans.
+   on the plans the f64 solves built (LP 20k, SDP 5k, SDP 1200), and
+   K8-f32 to K10-f32 on f32 storage of the same plans; K10 must take two
+   launches a solve and repeat bit for bit, and is timed on each plan.
 6. Mesh path (pars.mesh_shape, MESH_SOLVES): OH at full size with
    {"panels": 2} on two ranks and nb with {"hosts": 2, "panels": 2} on
    four, all sharing this card under gloo (parallel.launch.run_spmd).
@@ -1328,15 +1329,16 @@ def tile_case(plan, dev, rng, dtype=torch.float64):
 
 
 def escalation_tiles(B: int, gen, dtype=torch.float64) -> torch.Tensor:
-    """Three diagonal tiles (lower triangles): SPD; indefinite by less than
-    dmax + 1 (fails the lifted factor only); indefinite beyond it (fails
-    both rungs)."""
+    """Four diagonal tiles (lower triangles): SPD; indefinite by less than
+    dmax + 1 (fails the lifted factor only) at pivot 3 and at pivot 70 (in
+    K8's third panel); indefinite beyond it (fails both rungs)."""
     G = torch.randn(B, B, generator=gen, dtype=torch.float64)
     D = G @ G.T / B + torch.eye(B, dtype=torch.float64)
-    first, both = D.clone(), D.clone()
-    first[3, 3] = -0.5
+    first, late, both = D.clone(), D.clone(), D.clone()
+    first[3, 3] = late[70, 70] = -0.5
     both[5, 4] = both[4, 5] = 50.0
-    return torch.stack([torch.tril(a) for a in (D, first, both)]).to(dtype)
+    return torch.stack([torch.tril(a) for a in (D, first, late, both)]
+                       ).to(dtype)
 
 
 # K8-K10 tolerances against their plain versions, per storage dtype: the
@@ -1352,19 +1354,22 @@ TILE_TOL = {torch.float64: {"esc": 1e-12, "factor": 1e-9, "solve": 1e-9},
 
 def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
                        dtype=torch.float64):
-    """K8 and K9 level by level on the given plans (f64: LP 20k and SDP 5k;
-    f32: LP 20k and SDP 1200), at ADA = A H A' of a random interior point
+    """K8 and K9 level by level on the given plans (LP 20k, SDP 5k, SDP
+    1200), at ADA = A H A' of a random interior point
     in `dtype` storage: each level's K8 against the plain version from the
     same storage (rungs equal, factor within TILE_TOL of the level's
     max|L|), then K9 from the same post-K8 storage (within
     2 (B + P + 1) (eps (|D| + sum_pairs |A| |B|') + tiny), P = the
     destination's pair count, eps of `dtype`, tiny the f32 underflow
     threshold in f32 and 0 in f64); K10 on the kernels' factor against the
-    plain solve (within TILE_TOL of max|x|).  K8 also on three 128 x 128
-    tiles built for rungs 0, 1 and 2 (the rung-2 diagonal bit for bit in
-    f64, within 1 ulp in f32).  Times K8 and K9 at the LP's widest level
-    and K10's whole solve there.  The f32 build (K8-f32 to K10-f32) runs
-    with the reference's unchanged canceltol and reg, rounded to f32."""
+    plain solve (within TILE_TOL of max|x|), in two launches, and bit for
+    bit equal to a second call.  K8 also on four 128 x 128
+    tiles built for rungs 0, 1 (at pivots 3 and 70) and 2 (the rung-2
+    diagonal bit for bit in f64, within 1 ulp in f32).  Times K8 (and its
+    diagonal and off parts apart) and K9 at the LP's widest level, and
+    K10's whole solve on every plan.  The f32 build (K8-f32 to K10-f32)
+    runs with the reference's unchanged canceltol and reg, rounded to
+    f32."""
     from sedumi_tpu_torch import kernels
     from sedumi_tpu_torch import sparse_chol as sc
 
@@ -1376,23 +1381,23 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
     B = 128
     st = escalation_tiles(B, gen, dtype).to(dev)
     ref = st.clone()
-    lv3 = {"dslot": torch.arange(3, device=dev),
+    lv3 = {"dslot": torch.arange(4, device=dev),
            "off_slot": torch.zeros(0, dtype=torch.int64, device=dev),
            "off_dslot": torch.zeros(0, dtype=torch.int64, device=dev)}
     rk = sc.tile_factor(st, lv3, reg, canceltol)
     rp = sc.tile_factor_plain(ref, lv3, reg, canceltol)
-    err_esc = float(torch.abs(st[:2] - ref[:2]).max())
-    same2, err2 = bit_diff(st[2], ref[2])
-    ulp2 = float((torch.abs(st[2] - ref[2])
+    err_esc = float(torch.abs(st[:3] - ref[:3]).max())
+    same2, err2 = bit_diff(st[3], ref[3])
+    ulp2 = float((torch.abs(st[3] - ref[3])
                   / torch.finfo(dtype).eps
-                  / torch.clamp_min(torch.abs(ref[2]),
+                  / torch.clamp_min(torch.abs(ref[3]),
                                     torch.finfo(dtype).tiny)).max())
     print(f"K8{sfx} escalation tiles: rungs kernel {rk.tolist()} plain "
           f"{rp.tolist()}, max err rungs 0-1 {err_esc:.3e}, rung-2 tile "
           f"bit for bit {same2} (max err {err2:.3e})", flush=True)
-    if rk.tolist() != [0, 1, 2] or rp.tolist() != [0, 1, 2]:
+    if rk.tolist() != [0, 1, 1, 2] or rp.tolist() != [0, 1, 1, 2]:
         fail(f"{n8}: the escalation tiles took the wrong rungs")
-    if not (err_esc <= tol["esc"] * float(torch.abs(ref[:2]).max())
+    if not (err_esc <= tol["esc"] * float(torch.abs(ref[:3]).max())
             and (same2 or (f32 and ulp2 <= 1.0))):
         fail(f"{n8} kernel disagrees with its plain version on the "
              "escalation tiles")
@@ -1402,7 +1407,7 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
     # may flush to zero: an underflow term per summand (0 in f64)
     tiny = float(torch.finfo(dtype).tiny) if f32 else 0.0
     worst = {n8: err_esc, n9: 0.0, n10: 0.0}
-    timing = {}
+    timing, solves = {}, {}
     for label, plan in plans.items():
         aop, st = tile_case(plan, dev, rng, dtype)
         levels = aop.levels
@@ -1462,17 +1467,25 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
         torch.cuda.synchronize()
         if kernels.LAUNCHES[n10] == n0:
             fail(f"{n10} did not launch its kernels")
+        if kernels.LAUNCHES[n10] != n0 + 2:
+            fail(f"{n10} took {kernels.LAUNCHES[n10] - n0} launches, not "
+                 "one per pass")
         xp = sc.tile_solve_plain(st, rhs, levels)
         err = float(torch.abs(xk - xp).max())
         worst[n10] = max(worst[n10], err)
+        same = bit_diff(xk, sc.tile_solve(st, rhs, levels))[0]
         print(f"K8-K10{sfx} {label}: ntc={aop.meta['ntc']} "
               f"levels={len(levels)} widest={levels[wide]['cols'].numel()} "
               f"cols, rungs {n_rung}, worst K8 err/max|L|={rel8:.3e}, worst "
               f"K9 err/bound={ratio9:.3e}, K10 max err {err:.3e} (max|x| "
-              f"{float(xp.abs().max()):.3e})", flush=True)
+              f"{float(xp.abs().max()):.3e}), two calls bit for bit {same}",
+              flush=True)
         if not err <= tol["solve"] * float(torch.abs(xp).max()):
             fail(f"{n10} kernel disagrees with its plain version on "
                  f"{label}")
+        if not same:
+            fail(f"{n10}: two calls on the same inputs differ on {label}")
+        solves[label] = k10_timing(sc, st, rhs, levels, B, f32)
         if label == "lp20k":
             timing.update(levels=levels, wide=wide, L=st, rhs=rhs)
 
@@ -1497,6 +1510,20 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
         sc.tile_factor_plain(work, lv, reg, canceltol)
 
     t_copy = cuda_ms(restore, 20)
+    restore()
+    sc._tile_diag_kernel(work, lv, reg, canceltol)
+    after_diag = work.clone()
+
+    def k8_diag():
+        restore()
+        sc._tile_diag_kernel(work, lv, reg, canceltol)
+
+    def k8_off():
+        work.copy_(after_diag)
+        sc._tile_off_kernel(work, lv)
+
+    k8_parts = {"diag_ms": cuda_ms(k8_diag, 20) - t_copy,
+                "off_ms": cuda_ms(k8_off, 20) - t_copy}
     D = before[lv["dslot"]]
     D = torch.tril(D) + torch.tril(D, -1).mT
     dmax = torch.abs(torch.diagonal(D, dim1=-2, dim2=-1)).amax(-1)
@@ -1524,26 +1551,43 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
                 ms=cuda_ms(lambda: sc.tile_update(work9, lv), 20),
                 plain_ms=cuda_ms(lambda: sc.tile_update_plain(work9, lv), 5),
                 bound_ms=b9[0], bound_by=b9[1], library_ms=None)
-    ntiles = sum(v["dslot"].numel() + v["off_slot"].numel() for v in levels)
-    noff = sum(v["off_slot"].numel() for v in levels)
-    b10 = bound_ms(esz * B * B * ntiles + 2.0 * esz * rhs.numel(),
-                   2.0 * B * B * (ntiles - noff) + 4.0 * B * B * noff, peak)
     dsl = torch.cat([v["dslot"] for v in levels])
     Ld, yd = L[dsl], rhs.reshape(-1, B, 1)[:dsl.numel()].clone()
+    t10 = solves["lp20k"]
     row10 = dict(name=n10, route="cuda",
                  source="sedumi_tpu_torch/csrc/tile_solve.cu",
                  replaces="sedumi_tpu/sparse_chol.py:525",
-                 max_abs_err=worst[n10],
-                 ms=cuda_ms(lambda: sc.tile_solve(L, rhs, levels), 20),
-                 plain_ms=cuda_ms(lambda: sc.tile_solve_plain(L, rhs, levels),
-                                  5),
-                 bound_ms=b10[0], bound_by=b10[1],
+                 max_abs_err=worst[n10], ms=t10["ms"],
+                 plain_ms=t10["plain_ms"], bound_ms=t10["bound_ms"],
+                 bound_by=t10["bound_by"],
                  library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
                      Ld, yd, upper=False), 20))
     print(f"K8/K9{sfx} timed at the LP 20k widest level: {nc} columns, {no} "
-          f"off tiles, {np_} pairs; K10{sfx} over {len(levels)} levels, "
-          f"{ntiles} tiles", flush=True)
+          f"off tiles, {np_} pairs; K10{sfx} over {t10['levels']} levels, "
+          f"{t10['tiles']} tiles", flush=True)
+    print(json.dumps({"tile_timing" + sfx: {
+        "k8_widest_lp20k": {**k8_parts, "ms": row8["ms"],
+                            "library_ms": row8["library_ms"]},
+        "k10_solve": solves}}), flush=True)
     return [row8, row9, row10]
+
+
+def k10_timing(sc, L, rhs, levels, B, f32) -> dict:
+    """K10's whole solve on one plan: ms, the plain solve's ms, the bound
+    (each tile read once, 2 flops an entry of a diagonal tile and 4 of an
+    off tile, forward and backward) and the chain of dependent steps (a
+    diagonal solve per level and pass)."""
+    esz = 4 if f32 else 8
+    ntiles = sum(v["dslot"].numel() + v["off_slot"].numel() for v in levels)
+    noff = sum(v["off_slot"].numel() for v in levels)
+    b = bound_ms(esz * B * B * ntiles + 2.0 * esz * rhs.numel(),
+                 2.0 * B * B * (ntiles - noff) + 4.0 * B * B * noff,
+                 PEAK_F32_PER_S if f32 else PEAK_F64_PER_S)
+    return {"ms": cuda_ms(lambda: sc.tile_solve(L, rhs, levels), 20),
+            "plain_ms": cuda_ms(lambda: sc.tile_solve_plain(L, rhs, levels),
+                                5),
+            "bound_ms": b[0], "bound_by": b[1], "levels": len(levels),
+            "chain": 2 * len(levels), "tiles": ntiles}
 
 
 def check_library_rows(dev, gen, rng, plans):
@@ -2193,10 +2237,10 @@ def main() -> None:
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
                                  check_psd_outer_groups(plans["sdp5k"], dev,
                                                         rng))
-    rows += check_tile_kernels({k: plans[k] for k in ("lp20k", "sdp5k")},
-                               dev, gen, rng)
-    rows += check_tile_kernels({k: plans[k] for k in ("lp20k", "sdp1200")},
-                               dev, gen, rng, dtype=torch.float32)
+    tile_plans = {k: plans[k] for k in ("lp20k", "sdp5k", "sdp1200")}
+    rows += check_tile_kernels(tile_plans, dev, gen, rng)
+    rows += check_tile_kernels(tile_plans, dev, gen, rng,
+                               dtype=torch.float32)
     check_library_rows(dev, gen, rng, plans)
     print("K12 launches per variant over the paths: " + json.dumps(
         {k: v for k, v in total.items() if ":" in k}), flush=True)

@@ -72,13 +72,10 @@ SOURCES = {
         "tile_update_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
         "tile_update_f32_launch": [_P, _P, _P, _P, _P, _I, _I, _P]},
     "tile_solve.cu": {
-        "tile_fwd_diag_launch": [_P, _P, _P, _P, _I, _I, _P],
-        "tile_fwd_scatter_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-        "tile_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-        "tile_fwd_diag_f32_launch": [_P, _P, _P, _P, _I, _I, _P],
-        "tile_fwd_scatter_f32_launch": [_P, _P, _P, _P, _P, _P, _I, _I,
-                                        _P],
-        "tile_bwd_f32_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]},
+        "tile_solve_fwd_launch": [_P] * 11 + [_I, _I, _I, _P],
+        "tile_solve_bwd_launch": [_P] * 11 + [_I, _I, _I, _P],
+        "tile_solve_fwd_f32_launch": [_P] * 11 + [_I, _I, _I, _P],
+        "tile_solve_bwd_f32_launch": [_P] * 11 + [_I, _I, _I, _P]},
     "df_gemv.cu": {
         "df_matvec_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "df_vecmat_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P]},

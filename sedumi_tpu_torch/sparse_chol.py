@@ -21,10 +21,13 @@ comparisons):
 
 * K8 :func:`tile_factor` -- lifted Cholesky of the level's diagonal tiles
   with the reference's two escalation rungs, then X = T L_D^-T for its off
-  tiles (csrc/tile_chol.cu);
+  tiles, both blocked in panels of 32 (csrc/tile_chol.cu; two launches
+  per level);
 * K9 :func:`tile_update` -- st[dst] -= st[a] st[b]' over the level's
   update pairs (csrc/tile_update.cu);
-* K10 :func:`tile_solve` -- L L' x = b level by level (csrc/tile_solve.cu).
+* K10 :func:`tile_solve` -- L L' x = b, each pass one persistent kernel
+  that walks the levels of :func:`flatten_levels`' arrays
+  (csrc/tile_solve.cu; two launches per solve).
 
 Each works in the storage's dtype: f64, or f32 in the precision ladder's
 f32 and hybrid phases, where the wrappers launch the f32 builds (K8-f32,
@@ -253,11 +256,74 @@ def level_maps(dslot, oslot, omask, pa, pb, pdst, pmask, orow,
     return tuple(out)
 
 
-def levels_to(levels, device) -> tuple:
-    """The per-level maps as int64 tensors on `device`."""
-    return tuple({k: torch.as_tensor(np.ascontiguousarray(v),
-                                     dtype=torch.int64, device=device)
-                  for k, v in lv.items()} for lv in levels)
+# K10's flattened level arrays (flatten_levels), all int64
+FLAT_KEYS = ("lev_cols", "cols", "dslot", "col_off", "lev_off", "off_slot",
+             "off_row", "lev_fs", "fs_row", "fs_ptr", "fs_slot", "fs_col")
+
+
+def flatten_levels(levels) -> dict:
+    """K10's arrays, built once per plan from level_maps' numpy maps: every
+    level's lists concatenated in level order, with per-level offsets.
+
+      lev_cols             [nlev + 1] offsets into cols / dslot;
+      col_off              [ncols + 1] each column's off tiles, a CSR into
+                           off_slot / off_row (the level's off_ptr, shifted);
+      lev_off              [nlev + 1] offsets into off_slot / off_row;
+      lev_fs               [nlev + 1] offsets into fs_row;
+      fs_ptr               [nrows + 1] each destination row's off tiles, a
+                           CSR into fs_slot / fs_col (the level's fs_ptr,
+                           shifted).
+
+    Raises if a level's maps do not fit together."""
+    def offsets(sizes):
+        return np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+
+    def cat(key):
+        return np.concatenate([np.zeros(0, np.int64)] + [
+            np.asarray(lv[key], np.int64) for lv in levels])
+
+    ncol = [len(lv["cols"]) for lv in levels]
+    noff = [len(lv["off_slot"]) for lv in levels]
+    lev_off = offsets(noff)
+    col_off, fs_ptr = [np.zeros(1, np.int64)], [np.zeros(1, np.int64)]
+    for lv, n, o, base in zip(levels, ncol, noff, lev_off):
+        optr = np.asarray(lv["off_ptr"], np.int64)
+        fptr = np.asarray(lv["fs_ptr"], np.int64)
+        if (optr.size != n + 1 or optr[0] != 0 or optr[-1] != o
+                or fptr.size != len(lv["fs_row"]) + 1 or fptr[0] != 0
+                or fptr[-1] != o or np.any(np.diff(optr) < 0)
+                or np.any(np.diff(fptr) < 0) or len(lv["dslot"]) != n
+                or len(lv["fs_slot"]) != o or len(lv["off_row"]) != o):
+            raise ValueError("level maps do not fit together")
+        col_off.append(optr[1:] + base)
+        fs_ptr.append(fptr[1:] + base)
+    return dict(lev_cols=offsets(ncol), cols=cat("cols"), dslot=cat("dslot"),
+                col_off=np.concatenate(col_off), lev_off=lev_off,
+                off_slot=cat("off_slot"), off_row=cat("off_row"),
+                lev_fs=offsets([len(lv["fs_row"]) for lv in levels]),
+                fs_row=cat("fs_row"), fs_ptr=np.concatenate(fs_ptr),
+                fs_slot=cat("fs_slot"), fs_col=cat("fs_col"))
+
+
+class LevelMaps(tuple):
+    """levels_to's result: one dict of tensors per level, and in `flat`
+    K10's flattened arrays for the same plan (flatten_levels) with `bar`,
+    the grid barrier's two counters."""
+
+
+def levels_to(levels, device) -> LevelMaps:
+    """The per-level maps as int64 tensors on `device`, with K10's
+    flattened arrays, checked for the kernels once here."""
+    out = LevelMaps({k: torch.as_tensor(np.ascontiguousarray(v),
+                                        dtype=torch.int64, device=device)
+                     for k, v in lv.items()} for lv in levels)
+    flat = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+            for k, v in flatten_levels(levels).items()}
+    flat["bar"] = torch.zeros(2, dtype=torch.int32, device=device)
+    if flat["bar"].is_cuda:
+        kernels.check_cuda(*(flat[k] for k in FLAT_KEYS), dtype=torch.int64)
+    out.flat = flat
+    return out
 
 
 def assemble_tiles(nslot: int, B: int, asm_dst: torch.Tensor,
@@ -324,25 +390,37 @@ def _suffix(st: torch.Tensor) -> str:
     return "_f32" if st.dtype == torch.float32 else ""
 
 
-def _tile_factor_kernel(st: torch.Tensor, lv: dict, reg: float,
-                        canceltol: float) -> torch.Tensor:
+def _tile_diag_kernel(st: torch.Tensor, lv: dict, reg: float,
+                      canceltol: float) -> torch.Tensor:
+    """K8's diagonal part: the level's diagonal tiles and their rungs."""
     sfx = _suffix(st)
     kernels.check_cuda(st)
-    kernels.check_cuda(lv["dslot"], lv["off_slot"], lv["off_dslot"],
-                       dtype=torch.int64)
-    B = st.shape[-1]
+    kernels.check_cuda(lv["dslot"], dtype=torch.int64)
     nc = lv["dslot"].numel()
     rung = torch.empty(nc, dtype=torch.int32, device=st.device)
     kernels.launch("tile_chol.cu", f"tile_diag{sfx}_launch", st.data_ptr(),
-                   lv["dslot"].data_ptr(), rung.data_ptr(), nc, B,
+                   lv["dslot"].data_ptr(), rung.data_ptr(), nc, st.shape[-1],
                    float(reg), float(canceltol))
     kernels.LAUNCHES["tile_factor" + sfx] += 1
-    no = lv["off_slot"].numel()
-    if no:
-        kernels.launch("tile_chol.cu", f"tile_off{sfx}_launch",
-                       st.data_ptr(), lv["off_slot"].data_ptr(),
-                       lv["off_dslot"].data_ptr(), no, B)
-        kernels.LAUNCHES["tile_factor" + sfx] += 1
+    return rung
+
+
+def _tile_off_kernel(st: torch.Tensor, lv: dict) -> None:
+    """K8's off part: X = T L_D^-T for the level's off tiles."""
+    sfx = _suffix(st)
+    kernels.check_cuda(st)
+    kernels.check_cuda(lv["off_slot"], lv["off_dslot"], dtype=torch.int64)
+    kernels.launch("tile_chol.cu", f"tile_off{sfx}_launch", st.data_ptr(),
+                   lv["off_slot"].data_ptr(), lv["off_dslot"].data_ptr(),
+                   lv["off_slot"].numel(), st.shape[-1])
+    kernels.LAUNCHES["tile_factor" + sfx] += 1
+
+
+def _tile_factor_kernel(st: torch.Tensor, lv: dict, reg: float,
+                        canceltol: float) -> torch.Tensor:
+    rung = _tile_diag_kernel(st, lv, reg, canceltol)
+    if lv["off_slot"].numel():
+        _tile_off_kernel(st, lv)
     return rung
 
 
@@ -430,39 +508,34 @@ def tile_solve_plain(L: torch.Tensor, rhs: torch.Tensor,
     return y.reshape(-1)
 
 
-_SOLVE_KEYS = ("cols", "dslot", "fs_row", "fs_ptr", "fs_slot", "fs_col",
-               "off_ptr", "off_slot", "off_row")
-
-
-def _tile_solve_kernel(L: torch.Tensor, rhs: torch.Tensor,
-                       levels) -> torch.Tensor:
+def _tile_solve_kernel(L: torch.Tensor, rhs: torch.Tensor, levels,
+                       grid: int = 0) -> torch.Tensor:
+    """K10: the forward and the backward pass, one cooperative launch each
+    on `grid` blocks (0: one per SM); a grid the card cannot hold resident
+    raises."""
     sfx = _suffix(L)
     kernels.check_cuda(L, rhs, dtype=L.dtype)
-    for lv in levels:
-        kernels.check_cuda(*(lv[k] for k in _SOLVE_KEYS), dtype=torch.int64)
+    fl = getattr(levels, "flat", None)
+    if fl is None or fl["cols"].device != L.device:
+        raise ValueError("K10 takes the levels of levels_to on L's device")
     B = L.shape[-1]
+    nlev = fl["lev_cols"].numel() - 1
     name = "tile_solve" + sfx
     y = rhs.reshape(-1, B).clone()
-    for lv in levels:
-        nc = lv["cols"].numel()
-        kernels.launch("tile_solve.cu", f"tile_fwd_diag{sfx}_launch",
-                       L.data_ptr(), y.data_ptr(), lv["dslot"].data_ptr(),
-                       lv["cols"].data_ptr(), nc, B)
-        kernels.LAUNCHES[name] += 1
-        nr = lv["fs_row"].numel()
-        if nr:
-            kernels.launch("tile_solve.cu", f"tile_fwd_scatter{sfx}_launch",
-                           L.data_ptr(), y.data_ptr(), lv["fs_row"].data_ptr(),
-                           lv["fs_ptr"].data_ptr(), lv["fs_slot"].data_ptr(),
-                           lv["fs_col"].data_ptr(), nr, B)
-            kernels.LAUNCHES[name] += 1
-    for lv in reversed(levels):
-        kernels.launch("tile_solve.cu", f"tile_bwd{sfx}_launch", L.data_ptr(),
-                       y.data_ptr(), lv["dslot"].data_ptr(),
-                       lv["cols"].data_ptr(), lv["off_ptr"].data_ptr(),
-                       lv["off_slot"].data_ptr(), lv["off_row"].data_ptr(),
-                       lv["cols"].numel(), B)
-        kernels.LAUNCHES[name] += 1
+    part = torch.empty(max(fl["off_slot"].numel(), 1), B, dtype=L.dtype,
+                       device=L.device)
+    ptr = {k: fl[k].data_ptr() for k in (*FLAT_KEYS, "bar")}
+    kernels.launch("tile_solve.cu", f"tile_solve_fwd{sfx}_launch",
+                   L.data_ptr(), y.data_ptr(), ptr["lev_cols"], ptr["cols"],
+                   ptr["dslot"], ptr["lev_fs"], ptr["fs_row"], ptr["fs_ptr"],
+                   ptr["fs_slot"], ptr["fs_col"], ptr["bar"], nlev, B, grid)
+    kernels.LAUNCHES[name] += 1
+    kernels.launch("tile_solve.cu", f"tile_solve_bwd{sfx}_launch",
+                   L.data_ptr(), y.data_ptr(), part.data_ptr(),
+                   ptr["lev_cols"], ptr["cols"], ptr["dslot"],
+                   ptr["col_off"], ptr["lev_off"], ptr["off_slot"],
+                   ptr["off_row"], ptr["bar"], nlev, B, grid)
+    kernels.LAUNCHES[name] += 1
     return y.reshape(-1)
 
 

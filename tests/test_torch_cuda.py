@@ -22,7 +22,8 @@ import scipy.sparse as sp
 import torch
 
 import sedumi_tpu_torch as st
-from chip_smoke import jacobi_compare, nt_like, random_sparse_lp
+import tile_emulation as emu
+from chip_smoke import TILE_TOL, jacobi_compare, nt_like, random_sparse_lp
 from sedumi_tpu_torch import chol, ddlinalg, df, ipm, kernels, lax_eigh, \
     linalg_ops, opA, pcg, schur, sparse_chol, sparse_engine, transform
 from sedumi_tpu_torch.examples import load_example
@@ -804,6 +805,118 @@ def test_tile_factor_escalation_rungs_f32(cuda):
         ref[:2].abs().max())
     np.testing.assert_array_max_ulp(st[2].cpu().numpy(), ref[2].cpu().numpy(),
                                     maxulp=1)
+
+
+def chain_matrix(n, seed):
+    """G G' / n + I with G dense: a dense SDP-like pattern, every tile
+    filled, one column a level."""
+    G = np.random.default_rng(seed).standard_normal((n, n))
+    return sp.csc_matrix(G @ G.T / n + np.eye(n))
+
+
+def tile_plan(kind, B, dev):
+    """(matrix, SparseCholesky on dev): LP-like (ada_matrix, several
+    columns in the first level) or chain-like (one column a level)."""
+    if kind == "lp":
+        M = ada_matrix({16: 300, 32: 600, 128: 3000}[B], 7)
+    else:
+        M = chain_matrix(B * {16: 8, 32: 6, 128: 4}[B] - 5, 7)
+    return M, sparse_chol.SparseCholesky(M, B=B, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind,B", [("lp", 16), ("lp", 32), ("lp", 128),
+                                    ("chain", 16), ("chain", 32),
+                                    ("chain", 128)])
+def test_tile_solve_plans(cuda, kind, B, dtype):
+    """K10 (K10-f32) on LP-like and chain-like plans: two launches per
+    solve; within chip_smoke.TILE_TOL of the plain solve (of max|x|); bit
+    for bit equal to its emulation (tests/tile_emulation.py), to a second
+    call, and to calls on one block and on three (the order of every sum
+    is fixed, whatever the grid)."""
+    M, f = tile_plan(kind, B, cuda)
+    L = f.factor(M).to(dtype)
+    rhs = torch.as_tensor(np.random.default_rng(B).standard_normal(f.plan.n),
+                          dtype=dtype, device=cuda)
+    name = "tile_solve" + ("_f32" if dtype == torch.float32 else "")
+    n0 = kernels.LAUNCHES[name]
+    xk = sparse_chol.tile_solve(L, rhs, f.levels)
+    assert kernels.LAUNCHES[name] == n0 + 2
+    xp = sparse_chol.tile_solve_plain(L, rhs, f.levels)
+    assert float((xk - xp).abs().max()) <= TILE_TOL[dtype]["solve"] * float(
+        xp.abs().max())
+    flat_cpu = {k: v.cpu() for k, v in f.levels.flat.items()}
+    assert bits_equal(xk.cpu(), emu.tile_solve(L.cpu(), rhs.cpu(), flat_cpu))
+    assert bits_equal(xk, sparse_chol.tile_solve(L, rhs, f.levels))
+    for grid in (1, 3):
+        xg = sparse_chol._tile_solve_kernel(L, rhs, f.levels, grid)
+        assert bits_equal(xk, xg)
+
+
+@pytest.mark.cuda
+def test_tile_solve_refused_grid_raises(cuda):
+    """A grid the card cannot hold resident is refused before any block
+    runs: the launch raises, nothing is counted, and nothing falls back to
+    per-level launches or to the plain version."""
+    M, f = tile_plan("lp", 32, cuda)
+    L = f.factor(M)
+    rhs = torch.ones(f.plan.n, dtype=torch.float64, device=cuda)
+    n0 = kernels.LAUNCHES["tile_solve"]
+    with pytest.raises(RuntimeError):
+        sparse_chol._tile_solve_kernel(L, rhs, f.levels, 100000)
+    assert kernels.LAUNCHES["tile_solve"] == n0
+    with pytest.raises(ValueError):
+        sparse_chol.tile_solve(L, rhs, tuple(f.levels))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tile_factor_blocked_rungs(cuda, dtype):
+    """K8 (K8-f32) on four 128 x 128 diagonal tiles, SPD and built to fail
+    at pivot 3 (rung 1), at pivot 70 in the third panel (rung 1) and
+    beyond dmax + 1 (rung 2), each with an off tile: the plain version's
+    rungs, the rung-2 tile bit for bit equal to the plain version's, and
+    every tile bit for bit equal to the emulation of the blocked order."""
+    B = 128
+    rng = np.random.default_rng(0)
+    G = rng.standard_normal((B, B))
+    D = G @ G.T / B + np.eye(B)
+    first, late, both = D.copy(), D.copy(), D.copy()
+    first[3, 3] = late[70, 70] = -0.5
+    both[5, 4] = both[4, 5] = 50.0
+    diags = [np.tril(a) for a in (D, first, late, both)]
+    offs = [rng.standard_normal((B, B)) for _ in diags]
+    st = torch.as_tensor(np.stack(diags + offs), dtype=dtype, device=cuda)
+    lv = {"dslot": torch.arange(4, device=cuda),
+          "off_slot": torch.arange(4, 8, device=cuda),
+          "off_dslot": torch.arange(4, device=cuda)}
+    ref, cpu = st.clone(), st.cpu()
+    assert sparse_chol.tile_factor(st, lv, 0.0).tolist() == [0, 1, 1, 2]
+    assert sparse_chol.tile_factor_plain(ref, lv, 0.0).tolist() == \
+        [0, 1, 1, 2]
+    assert bits_equal(st[3], ref[3])
+    lv_cpu = {k: v.cpu() for k, v in lv.items()}
+    assert emu.tile_factor(cpu, lv_cpu, 0.0).tolist() == [0, 1, 1, 2]
+    assert bits_equal(st.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,B", [("lp", 32), ("chain", 128)])
+def test_tile_factor_levels_match_emulation(cuda, kind, B):
+    """K8 level by level on an LP-like and a chain-like plan, with K9
+    between levels, bit for bit equal to the emulation of its blocked
+    order run on the same storage."""
+    M, f = tile_plan(kind, B, cuda)
+    st = f.storage(M)
+    for lv in f.levels:
+        cpu = st.cpu()
+        rk = sparse_chol.tile_factor(st, lv, 0.0)
+        re = emu.tile_factor(cpu, {k: v.cpu() for k, v in lv.items()}, 0.0)
+        assert rk.tolist() == re.tolist()
+        slots = torch.cat([lv["dslot"], lv["off_slot"]])
+        assert bits_equal(st[slots].cpu(), cpu[slots.cpu()])
+        sparse_chol.tile_update(st, lv)
 
 
 def dense_column_lp():
