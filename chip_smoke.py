@@ -16,9 +16,13 @@
    Schur-panel kernels of the mesh path, K14 (a block column of the
    distributed Cholesky) and K15 (the distributed substitution's three
    steps), at OH's and nb's panel shapes within 1e-12 of max|L| and of
-   max|x|, with a non-PD block giving NaN; times each, and the card's
-   least time (bound) for the work.  K8-K10 and their f32 builds follow
-   the sparse paths (4., 5.), on their plans.
+   max|x|, with a non-PD block giving NaN, and bit for bit equal to the
+   emulation of their order (tests/panel_emulation.py); times each, K14
+   over the columns of one factor, back to back and as the replay of a
+   captured CUDA graph, beside one library call for the same work (two
+   for K15's forward step), and the card's least time (bound) for the
+   work.  K8-K10 and their f32 builds follow the sparse paths (4., 5.),
+   on their plans.
 2. Dense path: sedumi_tpu_torch.sedumi() on all six bundled examples at
    full size (quantum, nb, arch0, control07, trto3, OH), plus nb with one
    redundant all-zero constraint (its Schur complement is singular, so
@@ -1144,8 +1148,10 @@ def panel_chain(L, b, bs: int, n: int, fwd, contrib, solve):
 
 def panel_case(bs: int, mp: int, gen, dev) -> dict:
     """K14 on every block column and a non-PD diagonal block, and K15 in
-    the full two-panel substitution and step by step, against their plain
-    versions; the errors and the launch deltas."""
+    the full two-panel substitution, against their plain versions and
+    bit for bit against the emulation of their order
+    (tests/panel_emulation.py); the errors and the launch deltas."""
+    import panel_emulation as pe
     from sedumi_tpu_torch import kernels
     from sedumi_tpu_torch.parallel import panels as pn
 
@@ -1155,10 +1161,12 @@ def panel_case(bs: int, mp: int, gen, dev) -> dict:
     lmax = float(L.abs().max())
     n0 = dict(kernels.LAUNCHES)
     err_l = fac = 0.0
+    emu_ok = True
     for j, C in enumerate(Cs):
         got = pn.panel_chol_step(C, j)
         want = pn.panel_chol_plain(C, j)
         err_l = max(err_l, float((got - want).abs().max()))
+        emu_ok = emu_ok and bit_diff(got.cpu(), pe.chol_column(C.cpu(), j))[0]
         # and against the library's factor (cond 1e6: ~1e-10 apart)
         fac = max(fac, float((got[j:].reshape(-1, bs)
                               - L[j * bs:, j * bs:(j + 1) * bs])
@@ -1170,9 +1178,13 @@ def panel_case(bs: int, mp: int, gen, dev) -> dict:
     nan_ok = bool(torch.isnan(got[nb // 2:]).all()
                   and torch.isnan(want[nb // 2:]).all()
                   and (got[:nb // 2] == 0).all())
+    emu_ok = emu_ok and bit_diff(got.cpu(),
+                                 pe.chol_column(bad.cpu(), nb // 2))[0]
     b = torch.randn(mp, generator=gen, dtype=torch.float64).to(dev)
     x_k = panel_chain(L, b, bs, 2, pn.trisolve_fwd_step,
                       pn.trisolve_bwd_contrib, pn.trisolve_bwd_solve)
+    emu_ok = emu_ok and bit_diff(x_k.cpu(),
+                                 pe.dist_solve(L.cpu(), b.cpu(), bs, 2))[0]
     x_p = panel_chain(L, b, bs, 2, pn.trisolve_fwd_plain,
                       pn.trisolve_bwd_contrib_plain,
                       pn.trisolve_bwd_solve_plain)
@@ -1183,12 +1195,57 @@ def panel_case(bs: int, mp: int, gen, dev) -> dict:
     err_x = float((x_k - x_p).abs().max())
     return dict(err_l=err_l, rel_l=err_l / lmax, fac=fac / lmax, err_x=err_x,
                 rel_x=err_x / float(x_p.abs().max()), nan_ok=nan_ok,
-                resid=resid, counts=counts, M=M, L=L, Cs=Cs, b=b, x=x_k)
+                emu_ok=emu_ok, resid=resid, counts=counts, M=M, L=L, Cs=Cs,
+                b=b, x=x_k)
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """fn's device time a call: the replay of a captured CUDA graph of
+    reps calls, timed between CUDA events, so host work (the Python
+    wrappers, the launches' own overhead) is not counted."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: a call that is not stream-ordered (an earlier build's
+    # cudaFuncSetAttribute before each launch) runs instead of failing
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def try_graph_ms(label: str, fn):
+    """graph_ms of a call that may not be capturable (a library's), or
+    None, with the reason printed."""
+    try:
+        return graph_ms(fn)
+    except RuntimeError as exc:
+        print(f"{label}: no graph replay of the library call ({exc})",
+              flush=True)
+        torch.cuda.synchronize()
+        return None
 
 
 def check_panel_kernels(dev, gen):
-    """K14 and K15 against their plain versions at the mesh path's shapes
-    (PANEL_SHAPES), then timed at OH's."""
+    """K14 and K15 against their plain versions and, bit for bit, the
+    emulation of their order at the mesh path's shapes (PANEL_SHAPES),
+    then timed at OH's: back to back between CUDA events and as the
+    replay of a captured CUDA graph, each beside one library call (two
+    for the forward step) for the same work."""
     from sedumi_tpu_torch.parallel import panels as pn
 
     cases = {}
@@ -1199,7 +1256,8 @@ def check_panel_kernels(dev, gen):
               f"from its plain version ({c['fac']:.3e} from "
               f"torch.linalg.cholesky), K15 solve {c['rel_x']:.3e} of "
               f"max|x|, residual {c['resid']:.3e}, non-PD block NaN: "
-              f"{c['nan_ok']}, launches {c['counts']}", flush=True)
+              f"{c['nan_ok']}, bit for bit the emulation: {c['emu_ok']}, "
+              f"launches {c['counts']}", flush=True)
         want = {"dist_panel_chol": nb + 1, "dist_trisolve_fwd": nb,
                 "dist_trisolve_bwd_contrib": 2 * nb,
                 "dist_trisolve_bwd_solve": nb}
@@ -1209,14 +1267,17 @@ def check_panel_kernels(dev, gen):
                 and c["fac"] <= 1e-8 and c["resid"] <= 1e-8
                 and c["nan_ok"]):
             fail(f"K14/K15 disagree with their plain versions at bs={bs}")
+        if not c["emu_ok"]:
+            fail(f"K14/K15 differ from tests/panel_emulation.py at bs={bs}")
         cases[bs] = c
-    # times at OH's shape: K14 on column 0 (the most blocks to scale),
-    # K15's forward step on the last block row (the longest row product),
-    # the backward contribution of panel 1 to column 0, one back solve
+    # times at OH's shape: K14 over the nb columns of one factor (and on
+    # column 0, the most blocks to solve), K15's forward step on the last
+    # block row (the longest row product), the backward contribution of
+    # panel 1 to column 0, one back solve
     bs, mp = PANEL_SHAPES[0]
     c = cases[bs]
     nb = mp // bs
-    C0 = c["Cs"][0]
+    Cs, M = c["Cs"], c["M"]
     L, x, b = c["L"], c["x"], c["b"]
     row = L[(nb - 1) * bs:].contiguous()
     bj = b[(nb - 1) * bs:].contiguous()
@@ -1225,29 +1286,42 @@ def check_panel_kernels(dev, gen):
     Ljj = L[:bs, :bs].contiguous()
     b0, c0 = b[:bs].contiguous(), x[:bs].contiguous()
     k0 = (nb - 1) * bs
-    rows = []
+
+    def factor(step):
+        def run():
+            for j, C in enumerate(Cs):
+                step(C, j)
+        return run
+
+    # column j reads C[j]'s lower triangle and the nb - 1 - j blocks below
+    # and writes Lcol; a Cholesky of bs^3 / 3 flops and one solve of bs^3
+    # flops a block below
+    col_work = [(8.0 * ((nb - 1 - j) * bs * bs + bs * (bs + 1) / 2
+                        + nb * bs * bs),
+                 bs**3 / 3 + (nb - 1 - j) * float(bs)**3)
+                for j in range(nb)]
     spec = [
         ("dist_panel_chol", "sedumi_tpu_torch/csrc/panel_chol.cu",
          "sedumi_tpu/parallel/panels.py:47",
-         lambda: pn.panel_chol_step(C0, 0),
-         lambda: pn.panel_chol_plain(C0, 0),
-         lambda: torch.linalg.cholesky(c["M"]),
-         # C read and Lcol written; chol + inverse bs^3/3 each, the
-         # (nb - 1) off blocks 2 bs^3 each
-         (16.0 * nb * bs * bs, 2 * bs**3 / 3 + 2.0 * (nb - 1) * bs**3)),
+         factor(pn.panel_chol_step), factor(pn.panel_chol_plain),
+         "torch.linalg.cholesky_ex of the whole matrix (also its trailing "
+         "updates)", lambda: torch.linalg.cholesky_ex(M),
+         tuple(map(sum, zip(*col_work)))),
         ("dist_trisolve_fwd", "sedumi_tpu_torch/csrc/panel_solve.cu",
          "sedumi_tpu/parallel/panels.py:117",
          lambda: pn.trisolve_fwd_step(row, x, bj, nb - 1),
          lambda: pn.trisolve_fwd_plain(row, x, bj, nb - 1),
+         "torch.addmv + torch.linalg.solve_triangular (two calls)",
          lambda: torch.linalg.solve_triangular(
-             row[:, k0:], bj[:, None], upper=False),
+             row[:, k0:], torch.addmv(bj, row[:, :k0], x[:k0],
+                                      alpha=-1.0)[:, None], upper=False),
          # the row's first (nb - 1) bs + bs columns, x's first k0, b, xj
          (8.0 * (bs * (k0 + bs) + k0 + 2 * bs), 2.0 * bs * k0 + bs * bs)),
         ("dist_trisolve_bwd_contrib", "sedumi_tpu_torch/csrc/panel_solve.cu",
          "sedumi_tpu/parallel/panels.py:117",
          lambda: pn.trisolve_bwd_contrib(L3, x, bs, nb_loc, 0),
          lambda: pn.trisolve_bwd_contrib_plain(L3, x, bs, nb_loc, 0),
-         lambda: x[nb_loc * bs:] @ L3[:, :bs],
+         "x' L (one product)", lambda: x[nb_loc * bs:] @ L3[:, :bs],
          # the panel's column block 0 and its x segment, contrib
          (8.0 * (nb_loc * bs * bs + nb_loc * bs + bs),
           2.0 * nb_loc * bs * bs)),
@@ -1255,22 +1329,41 @@ def check_panel_kernels(dev, gen):
          "sedumi_tpu/parallel/panels.py:117",
          lambda: pn.trisolve_bwd_solve(Ljj, b0, c0),
          lambda: pn.trisolve_bwd_solve_plain(Ljj, b0, c0),
+         "torch.linalg.solve_triangular",
          lambda: torch.linalg.solve_triangular(Ljj.T, b0[:, None],
                                                upper=True),
          (8.0 * (bs * bs + 3 * bs), 1.0 * bs * bs)),
     ]
-    for name, src, rep, kern, plain, lib, (nbytes, flops) in spec:
-        ms = cuda_ms(kern, 50)
-        pms = cuda_ms(plain, 20)
-        lms = cuda_ms(lib, 50)
+    rows = []
+    for name, src, rep, kern, plain, label, lib, (nbytes, flops) in spec:
+        ms = cuda_ms(kern, 20)
+        pms = cuda_ms(plain, 5)
+        lms = cuda_ms(lib, 20)
+        gms = graph_ms(kern)
+        lgms = try_graph_ms(name, lib)
         b_ms, b_by = bound_ms(nbytes, flops)
         key = "err_l" if name == "dist_panel_chol" else "err_x"
-        print(f"{name} bs={bs} mp={mp}: {ms:.4g} ms (plain {pms:.4g}, "
-              f"library {lms:.4g}, bound {b_ms:.3g} by {b_by})", flush=True)
-        rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                         max_abs_err=max(cc[key] for cc in cases.values()),
-                         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lms))
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     max_abs_err=max(cc[key] for cc in cases.values()),
+                     ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lms, graph_ms=gms, library_graph_ms=lgms,
+                     library=label)
+        what = f"the {nb} columns of one factor" \
+            if name == "dist_panel_chol" else "one step"
+        print(f"{name} bs={bs} mp={mp}, {what}: {ms:.4g} ms (graph replay "
+              f"{gms:.4g}; plain {pms:.4g}; {label}: {lms:.4g}, graph "
+              f"replay {lgms}; bound {b_ms:.3g} by {b_by})", flush=True)
+        if name == "dist_panel_chol":
+            def col0():
+                return pn.panel_chol_step(Cs[0], 0)
+
+            entry.update(column0_ms=cuda_ms(col0, 50),
+                         column0_graph_ms=graph_ms(col0),
+                         column0_bound_ms=bound_ms(*col_work[0])[0])
+            print(f"dist_panel_chol column 0: {entry['column0_ms']:.4g} ms "
+                  f"(graph replay {entry['column0_graph_ms']:.4g}; bound "
+                  f"{entry['column0_bound_ms']:.3g})", flush=True)
+        rows.append(entry)
     return rows
 
 
@@ -2079,6 +2172,7 @@ def main() -> None:
         sys.exit(1)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    sys.path.insert(0, os.path.join(here, "tests"))   # panel_emulation
     from sedumi_tpu_torch import kernels
     from sedumi_tpu_torch.examples import load_example
 
@@ -2254,8 +2348,12 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in rows]}), flush=True)
+    # and, where a check gives them, its graph-replay and column-0 times
+    extra = ("graph_ms", "library_graph_ms", "library", "column0_ms",
+             "column0_graph_ms", "column0_bound_ms")
+    print(json.dumps({"kernels": [
+        {k: row[k] for k in keys + extra if k in keys or k in row}
+        for row in rows]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -50,7 +50,10 @@
 //      Masked slots are not in the level's list and are never written.
 //
 // Divisions go through div_pos: the card's double division takes a slow
-// path for a zero numerator, and sparse tiles hold many zeros.
+// path for a zero numerator, and sparse tiles hold many zeros.  The SYRK
+// and (b)'s solve are tri_factor.cuh's, shared with K14 (panel_chol.cu);
+// (a)'s column phase stays here (K14 factors a panel's triangle in one
+// warp instead).
 //
 // Bound on the card: (a) does B^3/3 flops per diagonal tile, (b) B^3 per
 // off tile; both read and write each tile once.  At B = 128 a tile is
@@ -58,115 +61,18 @@
 // the chain of 128 dependent pivots (square root, division, update) per
 // tile sets the kernels' time.
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "tri_factor.cuh"
 
 namespace {
 
-constexpr int DIAG_THREADS = 256;
-constexpr int OFF_THREADS = 128;
-constexpr int PANEL = 32;
-constexpr int OFF_ROWS = 32;
-constexpr int MAXB = 128;
-constexpr int LD = MAXB + 1;   // row stride of a tile in shared memory
-constexpr unsigned FULL = 0xffffffffu;
+using namespace dense;
+
+constexpr int DIAG_THREADS = FACTOR_THREADS;
 
 // max that keeps a NaN from either side (jnp.max / jnp.maximum)
 template <typename Real>
 __device__ __forceinline__ Real nanmax(Real a, Real b) {
   return (a > b || isnan(a)) ? a : b;
-}
-
-__device__ __forceinline__ double sqrt_t(double a) { return sqrt(a); }
-__device__ __forceinline__ float sqrt_t(float a) { return sqrtf(a); }
-__device__ __forceinline__ double fabs_t(double a) { return fabs(a); }
-__device__ __forceinline__ float fabs_t(float a) { return fabsf(a); }
-
-__host__ __device__ __forceinline__ int tri(int r) {
-  return r * (r + 1) / 2;
-}
-
-// The value, hidden from the compiler, so that a division of it is not
-// rewritten into a division of a zero.
-__device__ __forceinline__ double opaque(double v) {
-  asm volatile("" : "+d"(v));
-  return v;
-}
-__device__ __forceinline__ float opaque(float v) {
-  asm volatile("" : "+f"(v));
-  return v;
-}
-
-// x / d for a pivot d in (0, inf).  A zero x divides d instead and keeps
-// itself (what IEEE division gives, signed zero included): the card's
-// division takes a slow path for a zero numerator (and for a literal 1,
-// a reciprocal), and the sparse tiles hold many zeros.
-template <typename Real>
-__device__ __forceinline__ Real div_pos(Real x, Real d) {
-  const Real q = opaque(x == Real(0) ? d : x) / d;
-  return x == Real(0) ? x : q;
-}
-
-// Copy rows [0, nr) of a row-major tile with B columns into shared memory,
-// row r to dst + off(r), only its first len(r) entries; asynchronous
-// (cp.async, every copy in flight at once), waited for here.
-template <typename Real, typename Off, typename Len>
-__device__ void stage(const Real *src, int B, int nr, Real *dst, Off off,
-                      Len len) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = warp; r < nr; r += nwarps)
-    for (int c = lane; c < len(r); c += 32)
-      __pipeline_memcpy_async(dst + off(r) + c, src + r * B + c,
-                              sizeof(Real));
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-}
-
-// The lower triangle of a row-major tile into A (row stride LD).
-template <typename Real>
-__device__ void load_lower(const Real *tile, Real *A, int B) {
-  stage(tile, B, B, A, [](int r) { return r * LD; },
-        [](int r) { return r + 1; });
-}
-
-// The trailing update of one panel on the lower triangle of A[q0:, q0:]:
-// A[i][j] -= L[i][k] L[j][k] over the panel's columns k = p0, p0 + 1, ...
-// in order.  Thread (ti, tj) of 16 x 16 owns i = q0 + ti + 16 u and
-// j = q0 + tj + 16 v, v <= u (every block v > u lies above the diagonal),
-// u, v < NG = ceil((B - q0) / 16), held in registers over the k loop.
-template <int NG, typename Real>
-__device__ void syrk(Real *A, int B, int p0, int P, int q0) {
-  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-  Real acc[NG][NG];
-#pragma unroll
-  for (int u = 0; u < NG; ++u)
-#pragma unroll
-    for (int v = 0; v <= u; ++v) {
-      const int i = q0 + ti + 16 * u, j = q0 + tj + 16 * v;
-      acc[u][v] = (i < B && j <= i) ? A[i * LD + j] : Real(0);
-    }
-  for (int k = p0; k < p0 + P; ++k) {
-    Real li[NG], lj[NG];
-#pragma unroll
-    for (int u = 0; u < NG; ++u) {
-      const int i = q0 + ti + 16 * u, j = q0 + tj + 16 * u;
-      li[u] = i < B ? A[i * LD + k] : Real(0);
-      lj[u] = j < B ? A[j * LD + k] : Real(0);
-    }
-#pragma unroll
-    for (int u = 0; u < NG; ++u)
-#pragma unroll
-      for (int v = 0; v <= u; ++v) acc[u][v] = acc[u][v] - li[u] * lj[v];
-  }
-#pragma unroll
-  for (int u = 0; u < NG; ++u)
-#pragma unroll
-    for (int v = 0; v <= u; ++v) {
-      const int i = q0 + ti + 16 * u, j = q0 + tj + 16 * v;
-      if (i < B && j <= i) A[i * LD + j] = acc[u][v];
-    }
 }
 
 // Right-looking blocked Cholesky of the B x B matrix in A's lower triangle
@@ -208,16 +114,8 @@ __device__ bool chol_blocked(Real *A, int B) {
       __syncthreads();
     }
     // (2) the trailing update (at most 96 rows: 6 strips of 16)
-    const int n = B - e;
-    if (n <= 0) break;
-    switch ((n + 15) / 16) {
-      case 1: syrk<1>(A, B, p0, e - p0, e); break;
-      case 2: syrk<2>(A, B, p0, e - p0, e); break;
-      case 3: syrk<3>(A, B, p0, e - p0, e); break;
-      case 4: syrk<4>(A, B, p0, e - p0, e); break;
-      case 5: syrk<5>(A, B, p0, e - p0, e); break;
-      default: syrk<6>(A, B, p0, e - p0, e); break;
-    }
+    if (e >= B) break;
+    trailing_syrk(A, B, p0, e);
     __syncthreads();
   }
   return true;
@@ -287,12 +185,9 @@ tile_off_kernel(Real *__restrict__ st, const long long *__restrict__ off_slot,
                 const long long *__restrict__ off_dslot, int B) {
   extern __shared__ __align__(16) unsigned char smem[];
   Real *Lp = reinterpret_cast<Real *>(smem);   // L_D[c][k] at tri(c) + k
-  // the rows' chunk of X and each warp's current column of it, arrays of
-  // their own (their stores do not hold up the loads of L_D)
+  // the rows' chunk of X, an array of its own (its stores do not hold up
+  // the loads of L_D)
   __shared__ Real X[OFF_ROWS * LD];             // X[r][c] at r LD + c
-  constexpr int NW = OFF_THREADS / 32, RW = OFF_ROWS / NW;
-  __shared__ Real colw[NW][RW];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nq = (B + OFF_ROWS - 1) / OFF_ROWS;
   const long long BB = (long long)B * B;
   const long long o = blockIdx.x / nq;
@@ -304,74 +199,7 @@ tile_off_kernel(Real *__restrict__ st, const long long *__restrict__ off_slot,
         [](int r) { return r + 1; });
   stage(T, B, R, X, [](int r) { return r * LD; }, [=](int) { return B; });
   __syncthreads();
-  // rows are independent: warp w owns rows w RW ... w RW + RW - 1 and
-  // meets no other warp
-  const int rb = warp * RW, nr = max(0, min(RW, R - rb));
-  Real *Xw = X + rb * LD;
-  for (int p0 = 0; p0 < B; p0 += PANEL) {
-    const int e = min(p0 + PANEL, B);
-    // (1) the panel's columns one by one: the column's divisions (a lane a
-    // row), then its products into the panel's later columns (a lane a
-    // column)
-    for (int c = p0; c < e; ++c) {
-      if (lane < nr) {
-        const Real xc = div_pos(Xw[lane * LD + c], Lp[tri(c) + c]);
-        Xw[lane * LD + c] = xc;
-        colw[warp][lane] = xc;
-      }
-      __syncwarp();
-      const int t = c + 1 + lane;
-      if (t < e) {
-        const Real ltc = Lp[tri(t) + c];
-        Real x[RW], xc[RW];   // every load first, then the products
-#pragma unroll
-        for (int k = 0; k < RW; ++k) {
-          x[k] = k < nr ? Xw[k * LD + t] : Real(0);
-          xc[k] = colw[warp][k];
-        }
-#pragma unroll
-        for (int k = 0; k < RW; ++k)
-          if (k < nr) Xw[k * LD + t] = x[k] - xc[k] * ltc;
-      }
-      __syncwarp();
-    }
-    // (2) the remaining columns j = e + lane + 32 m: X[r][j] -= X[r][k]
-    // L[j][k], k in the panel in order
-    if (e >= B) break;
-    constexpr int NM = (MAXB - PANEL) / 32;   // 3
-    Real acc[RW][NM];
-#pragma unroll
-    for (int k = 0; k < RW; ++k)
-#pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        const int j = e + lane + 32 * m;
-        acc[k][m] = (k < nr && j < B) ? Xw[k * LD + j] : Real(0);
-      }
-    for (int c = p0; c < e; ++c) {
-      Real xk[RW], lj[NM];
-#pragma unroll
-      for (int k = 0; k < RW; ++k) xk[k] = Xw[k * LD + c];
-#pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        const int j = e + lane + 32 * m;
-        lj[m] = j < B ? Lp[tri(j) + c] : Real(0);
-      }
-#pragma unroll
-      for (int k = 0; k < RW; ++k)
-#pragma unroll
-        for (int m = 0; m < NM; ++m) acc[k][m] = acc[k][m] - xk[k] * lj[m];
-    }
-#pragma unroll
-    for (int k = 0; k < RW; ++k)
-#pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        const int j = e + lane + 32 * m;
-        if (k < nr && j < B) Xw[k * LD + j] = acc[k][m];
-      }
-    __syncwarp();
-  }
-  for (int k = 0; k < nr; ++k)
-    for (int c = lane; c < B; c += 32) T[(rb + k) * B + c] = Xw[k * LD + c];
+  off_rows(Lp, X, B, R, T, B);
 }
 
 int raise_smem(const void *fn, size_t bytes) {

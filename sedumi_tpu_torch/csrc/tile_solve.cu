@@ -36,7 +36,9 @@
 // thread updates one row below (above, backward) with the panel's values.
 // Warp 0 updates the next panel's rows itself, so it can go on without
 // waiting: one block barrier per panel.  The division of a zero takes the
-// card's slow path, so div_lane divides something else then.
+// card's slow path, so div_lane divides something else then.  The fetch
+// and both triangle solves are tri_solve.cuh's, shared with K15
+// (panel_solve.cu).
 //
 // The kernels are templates: the f64 build is K10, the f32 build K10-f32
 // (the f32 phases' tile factor; 33 KB for a packed L_D at B = 128).
@@ -47,44 +49,11 @@
 // divisions, and a grid barrier between phases.  The design spends one
 // launch per pass and one barrier per phase on it.
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
+#include "tri_solve.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-constexpr int MAXB = 128;
-constexpr int PANEL = 32;
-constexpr unsigned FULL = 0xffffffffu;
-
-__host__ __device__ __forceinline__ int tri(int r) {
-  return r * (r + 1) / 2;
-}
-
-// The value, hidden from the compiler, so that a division of it is not
-// rewritten into a division of a zero.
-__device__ __forceinline__ double opaque(double v) {
-  asm volatile("" : "+d"(v));
-  return v;
-}
-__device__ __forceinline__ float opaque(float v) {
-  asm volatile("" : "+f"(v));
-  return v;
-}
-
-// Lane c's x / d, d a diagonal entry of the factor (in (0, inf)); every
-// other lane divides 1 by 1, so the warp does not diverge, and a zero x
-// divides d instead and keeps itself (what IEEE division gives, signed
-// zero included): the card's division takes a slow path for a zero
-// numerator (and for a literal 1, a reciprocal).
-template <typename Real>
-__device__ __forceinline__ Real div_lane(Real x, Real d, bool mine) {
-  const bool use = mine && x != Real(0);
-  const Real den = mine ? d : Real(1);
-  const Real q = opaque(use ? x : den) / den;
-  return use ? q : x;
-}
+using namespace dense;
 
 // Grid barrier for a cooperative launch.  bar[0] counts arrivals and is
 // reset by the last one, bar[1] is the generation the others wait on; the
@@ -107,18 +76,6 @@ __device__ __forceinline__ void grid_sync(unsigned *bar) {
   __syncthreads();
 }
 
-// Start copying L_D's lower triangle, packed by rows (row r at tri(r)),
-// from its row-major tile: asynchronous copies (cp.async, all in flight at
-// once); __pipeline_wait_prior(0) and a block barrier finish them.
-template <typename Real>
-__device__ void fetch_packed(const Real *__restrict__ Ld, Real *Lp, int B) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < B; r += NWARPS)
-    for (int c = lane; c <= r; c += 32)
-      __pipeline_memcpy_async(Lp + tri(r) + c, Ld + r * B + c, sizeof(Real));
-  __pipeline_commit();
-}
-
 // Fetch this block's first diagonal tile of the level's columns
 // [c0, c0 + nc), if it has one: a block takes columns blockIdx.x,
 // blockIdx.x + gridDim.x, ...
@@ -126,81 +83,8 @@ template <typename Real>
 __device__ void prefetch_first(const Real *L, const long long *dslot,
                                long long c0, long long nc, Real *Lp, int B) {
   if (blockIdx.x < nc)
-    fetch_packed(L + dslot[c0 + blockIdx.x] * (long long)B * B, Lp, B);
-}
-
-// ys <- L_D^-1 ys in shared memory.
-template <typename Real>
-__device__ void fwd_diag(const Real *Lp, Real *ys, int B) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int p0 = 0; p0 < B; p0 += PANEL) {
-    const int P = min(PANEL, B - p0);
-    if (warp == 0) {
-      // lane i holds row p0 + i of the panel's triangle in registers
-      const Real *Lr = Lp + tri(p0 + min(lane, P - 1)) + p0;
-      Real l[PANEL];
-#pragma unroll
-      for (int c = 0; c < PANEL; ++c)
-        l[c] = (c < P && c <= lane) ? Lr[c] : Real(0);
-      Real v = lane < P ? ys[p0 + lane] : Real(0);
-#pragma unroll
-      for (int c = 0; c < PANEL; ++c) {
-        if (c < P) {
-          v = div_lane(v, l[c], lane == c);
-          const Real yc = __shfl_sync(FULL, v, c);
-          if (lane > c && lane < P) v = v - l[c] * yc;
-        }
-      }
-      if (lane < P) ys[p0 + lane] = v;
-    }
-    __syncthreads();
-    // rows below: warp 0 the next panel's, the other warps the rest
-    const int q0 = p0 + P, Pn = min(PANEL, B - q0);
-    const int r = warp == 0 ? (lane < Pn ? q0 + lane : B)
-                            : q0 + max(Pn, 0) + (int)threadIdx.x - 32;
-    if (r < B) {
-      const Real *Lr = Lp + tri(r) + p0;
-      Real s = 0;
-      for (int c = 0; c < P; ++c) s = s + Lr[c] * ys[p0 + c];
-      ys[r] = ys[r] - s;
-    }
-  }
-}
-
-// zs <- L_D^-T zs in shared memory, panels from the bottom.
-template <typename Real>
-__device__ void bwd_diag(const Real *Lp, Real *zs, int B) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = (B - 1) / PANEL; k >= 0; --k) {
-    const int p0 = k * PANEL, P = min(PANEL, B - p0);
-    if (warp == 0) {
-      // lane i holds column p0 + i of the panel's triangle in registers
-      Real l[PANEL];
-#pragma unroll
-      for (int c = 0; c < PANEL; ++c)
-        l[c] = (c < P && c >= lane) ? Lp[tri(p0 + c) + p0 + lane] : Real(0);
-      Real v = lane < P ? zs[p0 + lane] : Real(0);
-#pragma unroll
-      for (int c = PANEL - 1; c >= 0; --c) {
-        if (c < P) {
-          v = div_lane(v, l[c], lane == c);
-          const Real xc = __shfl_sync(FULL, v, c);
-          if (lane < c) v = v - l[c] * xc;
-        }
-      }
-      if (lane < P) zs[p0 + lane] = v;
-    }
-    __syncthreads();
-    // rows above: warp 0 the previous panel's, the other warps the rest
-    const int r = warp == 0 ? (k > 0 ? p0 - PANEL + lane : -1)
-                            : ((int)threadIdx.x - 32 < p0 - PANEL
-                                   ? (int)threadIdx.x - 32 : -1);
-    if (r >= 0) {
-      Real s = 0;
-      for (int c = 0; c < P; ++c) s = s + Lp[tri(p0 + c) + r] * zs[p0 + c];
-      zs[r] = zs[r] - s;
-    }
-  }
+    fetch_packed(L + dslot[c0 + blockIdx.x] * (long long)B * B, B, Lp,
+                 B);
 }
 
 struct FwdPlan {
@@ -231,7 +115,8 @@ tile_solve_fwd_kernel(const Real *__restrict__ L, Real *y, FwdPlan p,
     // the previous level
     const long long c0 = p.lev_cols[l], nc = p.lev_cols[l + 1] - c0;
     for (long long it = blockIdx.x; it < nc; it += gridDim.x) {
-      if (it != blockIdx.x) fetch_packed(L + p.dslot[c0 + it] * BB, Lp, B);
+      if (it != blockIdx.x)
+        fetch_packed(L + p.dslot[c0 + it] * BB, B, Lp, B);
       __pipeline_wait_prior(0);
       Real *yj = y + p.cols[c0 + it] * B;
       for (int i = threadIdx.x; i < B; i += THREADS) ys[i] = __ldcg(yj + i);
@@ -329,7 +214,7 @@ tile_solve_bwd_kernel(const Real *__restrict__ L, Real *y, Real *part,
     const long long c0 = p.lev_cols[l], nc = p.lev_cols[l + 1] - c0;
     for (long long it = blockIdx.x; it < nc; it += gridDim.x) {
       const long long j = c0 + it;
-      if (it != blockIdx.x) fetch_packed(L + p.dslot[j] * BB, Lp, B);
+      if (it != blockIdx.x) fetch_packed(L + p.dslot[j] * BB, B, Lp, B);
       __pipeline_wait_prior(0);
       Real *yj = y + p.cols[j] * B;
       for (int i = threadIdx.x; i < B; i += THREADS) {

@@ -8,12 +8,13 @@ collectives (all_reduce of zero-filled buffers: the reference's masked
 psum).  The per-step bodies are kernels on the card:
 
 * K14 (csrc/panel_chol.cu, panel_chol_step): one block column of the
-  block-cyclic factor -- Ljj = chol(C[j]), Ljj^-1 formed explicitly,
-  Lcol = C Ljj^-T below the diagonal block (reference :79-87);
+  block-cyclic factor -- Ljj = chol(C[j]), Lcol = C Ljj^-T below the
+  diagonal block (reference :75-87; the kernel solves against Ljj where
+  the reference multiplies by its explicit inverse);
 * K15 (csrc/panel_solve.cu): the substitution steps -- the owner's
-  forward step (row-panel product fused with the bs-triangle solve,
-  :135-146), every rank's backward contribution (:156-162) and the
-  backward triangle solve after the psum (:170-171).
+  forward step (the row-panel product over a thread-block cluster, then
+  the bs-triangle solve, :135-146), every rank's backward contribution
+  (:156-162) and the backward triangle solve after the psum (:170-171).
 
 On CPU tensors the same functions run their plain PyTorch versions
 (*_plain); on a CUDA tensor they launch the kernel or raise.  The trailing
@@ -67,12 +68,9 @@ def _panel_chol_kernel(C: torch.Tensor, j: int) -> torch.Tensor:
     nb, bs, _ = C.shape
     if bs > 128:
         raise ValueError(f"panel_chol takes bs <= 128, got {bs}")
-    Ljj = torch.empty(bs, bs, dtype=C.dtype, device=C.device)
-    Linv = torch.empty_like(Ljj)
     Lcol = torch.empty_like(C)
     kernels.launch("panel_chol.cu", "panel_chol_launch", C.data_ptr(),
-                   Ljj.data_ptr(), Linv.data_ptr(), Lcol.data_ptr(), nb, bs,
-                   j)
+                   Lcol.data_ptr(), nb, bs, j)
     kernels.LAUNCHES["dist_panel_chol"] += 1
     return Lcol
 
@@ -124,32 +122,46 @@ def _check_bs(bs: int) -> None:
         raise ValueError(f"the panel solve kernels take bs <= 128, got {bs}")
 
 
-def trisolve_fwd_step(row, x, bj, j: int) -> torch.Tensor:
-    """The owner's forward step (K15 fwd on the card)."""
-    if not row.is_cuda:
-        return trisolve_fwd_plain(row, x, bj, j)
+def _fwd_step_kernel(row, x, bj, j: int, ncta: int = 0) -> torch.Tensor:
+    """K15's forward step on a cluster of ncta CTAs (0: one a column group
+    of the row product, at most 8); the result does not depend on it."""
     kernels.check_cuda(row, x, bj, dtype=torch.float64)
     bs, mp = row.shape
     _check_bs(bs)
     xj = torch.empty(bs, dtype=row.dtype, device=row.device)
     kernels.launch("panel_solve.cu", "panel_fwd_step_launch", row.data_ptr(),
-                   x.data_ptr(), bj.data_ptr(), xj.data_ptr(), bs, mp, j)
+                   x.data_ptr(), bj.data_ptr(), xj.data_ptr(), bs, mp, j,
+                   ncta)
     kernels.LAUNCHES["dist_trisolve_fwd"] += 1
     return xj
+
+
+def trisolve_fwd_step(row, x, bj, j: int) -> torch.Tensor:
+    """The owner's forward step (K15 fwd on the card)."""
+    if not row.is_cuda:
+        return trisolve_fwd_plain(row, x, bj, j)
+    return _fwd_step_kernel(row, x, bj, j)
+
+
+def _bwd_contrib_kernel(L3, x, bs: int, g0: int, j: int,
+                        ncta: int = 0) -> torch.Tensor:
+    """K15's backward contribution on clusters of ncta CTAs (0: one a row
+    group, at most 8); the result does not depend on it."""
+    kernels.check_cuda(L3, x, dtype=torch.float64)
+    _check_bs(bs)
+    contrib = torch.empty(bs, dtype=L3.dtype, device=L3.device)
+    kernels.launch("panel_solve.cu", "panel_bwd_contrib_launch",
+                   L3.data_ptr(), x.data_ptr(), contrib.data_ptr(), bs,
+                   L3.shape[1], L3.shape[0] // bs, g0, j, ncta)
+    kernels.LAUNCHES["dist_trisolve_bwd_contrib"] += 1
+    return contrib
 
 
 def trisolve_bwd_contrib(L3, x, bs: int, g0: int, j: int) -> torch.Tensor:
     """This rank's backward contribution (K15 bwd_contrib on the card)."""
     if not L3.is_cuda:
         return trisolve_bwd_contrib_plain(L3, x, bs, g0, j)
-    kernels.check_cuda(L3, x, dtype=torch.float64)
-    _check_bs(bs)
-    contrib = torch.empty(bs, dtype=L3.dtype, device=L3.device)
-    kernels.launch("panel_solve.cu", "panel_bwd_contrib_launch",
-                   L3.data_ptr(), x.data_ptr(), contrib.data_ptr(), bs,
-                   L3.shape[1], L3.shape[0] // bs, g0, j)
-    kernels.LAUNCHES["dist_trisolve_bwd_contrib"] += 1
-    return contrib
+    return _bwd_contrib_kernel(L3, x, bs, g0, j)
 
 
 def trisolve_bwd_solve(Ljj, bj, contrib) -> torch.Tensor:

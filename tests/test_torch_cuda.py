@@ -1038,6 +1038,92 @@ def test_panel_kernels(cuda, bs, mp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 48, 64, 128])
+def test_panel_kernels_match_emulation(cuda, bs):
+    """K14 on every block column of an 8-block matrix (and on a block that
+    fails in its last pivot) and K15 in the two-panel substitution and
+    step by step, bit for bit equal to tests/panel_emulation.py, at the
+    widths _bs_for yields and at 48 (a short last panel); two calls agree
+    bit for bit, and K15's sums do not depend on the cluster's size (1,
+    3 and 8 CTAs against the default)."""
+    import panel_emulation as pe
+    from chip_smoke import panel_chain, panel_columns, panel_spd
+    from sedumi_tpu_torch.parallel import panels as pn
+
+    nb = 8
+    mp = nb * bs
+    gen = torch.Generator().manual_seed(bs)
+    Cs, L = panel_columns(panel_spd(mp, gen, cuda), bs)
+    for j, C in enumerate(Cs):
+        got = pn.panel_chol_step(C, j)
+        assert bits_equal(got.cpu(), pe.chol_column(C.cpu(), j)), j
+        assert bits_equal(got, pn.panel_chol_step(C, j)), j
+    bad = Cs[4].clone()
+    bad[4, bs - 1, bs - 1] = -1.0
+    got = pn.panel_chol_step(bad, 4)
+    assert bits_equal(got.cpu(), pe.chol_column(bad.cpu(), 4))
+    assert torch.isnan(got[4:]).all() and (got[:4] == 0).all()
+    b = torch.randn(mp, generator=gen, dtype=torch.float64).to(cuda)
+    x = panel_chain(L, b, bs, 2, pn.trisolve_fwd_step,
+                    pn.trisolve_bwd_contrib, pn.trisolve_bwd_solve)
+    assert bits_equal(x.cpu(), pe.dist_solve(L.cpu(), b.cpu(), bs, 2))
+    # the last forward step (the longest row product) on its own
+    j = nb - 1
+    row, bj = L[j * bs:], b[j * bs:]
+    xs = torch.cat([x[:j * bs], torch.zeros(bs, dtype=x.dtype,
+                                            device=cuda)])
+    xj = pn._fwd_step_kernel(row, xs, bj, j)
+    assert bits_equal(xj.cpu(), pe.fwd_step(row.cpu(), xs.cpu(), bj.cpu(),
+                                            j))
+    for ncta in (1, 3, 8):
+        assert bits_equal(pn._fwd_step_kernel(row, xs, bj, j, ncta), xj)
+    # panel 1's contributions: every row, part of them, none
+    L3 = L[4 * bs:]
+    for jj in (0, 4, 5, 7):
+        c = pn._bwd_contrib_kernel(L3, x, bs, 4, jj)
+        assert bits_equal(c.cpu(), pe.bwd_contrib(L3.cpu(), x.cpu(), bs, 4,
+                                                  jj)), jj
+        for ncta in (1, 3, 8):
+            assert bits_equal(pn._bwd_contrib_kernel(L3, x, bs, 4, jj, ncta),
+                              c), (jj, ncta)
+    Ljj = L[:bs, :bs].contiguous()
+    xb = pn.trisolve_bwd_solve(Ljj, b[:bs], x[:bs])
+    assert bits_equal(xb.cpu(), pe.bwd_solve(Ljj.cpu(), b[:bs].cpu(),
+                                             x[:bs].cpu()))
+    assert bits_equal(xb, pn.trisolve_bwd_solve(Ljj, b[:bs], x[:bs]))
+
+
+@pytest.mark.cuda
+def test_panel_kernels_refuse_shapes(cuda):
+    """What K14/K15 do not take raises and counts no launch, with no
+    fallback to the plain versions: bs above 128 in the wrappers; in the
+    launches a block row past mp, a cluster of more than 8 CTAs and a
+    block column past the matrix."""
+    from sedumi_tpu_torch.parallel import panels as pn
+
+    before = dict(kernels.LAUNCHES)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="bs <= 128"):
+        pn.panel_chol_step(torch.zeros(2, 129, 129, **f64), 0)
+    with pytest.raises(ValueError, match="bs <= 128"):
+        pn.trisolve_bwd_solve(torch.eye(129, **f64), torch.zeros(129, **f64),
+                              torch.zeros(129, **f64))
+    row, x, bj = torch.zeros(16, 64, **f64), torch.zeros(64, **f64), \
+        torch.zeros(16, **f64)
+    with pytest.raises(RuntimeError):
+        pn._fwd_step_kernel(row, x, bj, 4)          # (4 + 1) 16 > 64
+    with pytest.raises(RuntimeError):
+        pn._fwd_step_kernel(row, x, bj, 1, ncta=9)
+    with pytest.raises(RuntimeError):
+        pn._bwd_contrib_kernel(row, x, 16, 0, 0, ncta=9)
+    C = torch.zeros(2, 16, 16, **f64)
+    with pytest.raises(RuntimeError):
+        kernels.launch("panel_chol.cu", "panel_chol_launch", C.data_ptr(),
+                       C.data_ptr(), 2, 16, 2)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
 def test_mesh_panels_witness(cuda):
     """nb with {"panels": 2} on two ranks sharing this card (gloo): the
     reference gate, the same x on both ranks, K14 and K15 launched on
