@@ -3,31 +3,40 @@
     python3 chip_smoke.py
 
 1. Kernel phase: builds every CUDA kernel of the port from csrc/ (one nvcc
-   per source, in parallel) and holds K1-K7, the f32 builds of K1-K3,
-   K11 (the double-float GEMV and GEMV-transpose) and the batched Jacobi
-   eigensolvers K12 (f64, f32) and K13 (complex128, complex64) against
-   their plain-PyTorch twins on the card at the shapes the solver gives
-   them, with the tolerance stated (K1, K2, K6, K11 and the f32 K1, K2
-   within error bounds; K3, K4, K5, K7, the f32 K3 and K12 bit for bit,
-   K12 also in its sweep count, in each of its variants: one block, a
+   per source, in parallel) and holds K1-K7, the fused dd triangular
+   solve ("K6 solve"), the f32 builds of K1-K3, K11 (the double-float
+   GEMV and GEMV-transpose) and the batched Jacobi eigensolvers K12 (f64,
+   f32) and K13 (complex128, complex64) against their plain-PyTorch twins
+   on the card at the shapes the solver gives them, with the tolerance
+   stated (K1, K2, K6, K11 and the f32 K1, K2 within error bounds, K6
+   also bit for bit the emulation of its lane order, tests/
+   dd_emulation.py; K3, K4, K5, K7, the f32 K3 and K12 bit for bit, K12
+   also in its sweep count, in each of its variants: one block, a
    cluster of 2-16 CTAs, device memory; K13 within 4 n eps ||A|| in the
    same eigenvalue slots, with its residual and orthogonality against
-   the plain version's), and the
+   the plain version's, and bit for bit its device-memory variant in w,
+   V and sweeps, in each variant; the K6 solve bit for bit the
+   composition of K6 and K5 launches and its emulation, and within
+   1e-18 of max|z| of the plain twins' solve), and the
    Schur-panel kernels of the mesh path, K14 (a block column of the
    distributed Cholesky) and K15 (the distributed substitution's three
    steps), at OH's and nb's panel shapes within 1e-12 of max|L| and of
    max|x|, with a non-PD block giving NaN, and bit for bit equal to the
    emulation of their order (tests/panel_emulation.py); times each, K14
-   over the columns of one factor, back to back and as the replay of a
-   captured CUDA graph, beside one library call for the same work (two
-   for K15's forward step), and the card's least time (bound) for the
-   work.  K8-K10 and their f32 builds follow the sparse paths (4., 5.),
-   on their plans.
+   over the columns of one factor, back to back and (K1, K6, the K6
+   solve, K14, K15) as the replay of a captured CUDA graph, beside one
+   library call for the same work (two for K15's forward step), and the
+   card's least time (bound) for the work.  K8-K10 and their f32 builds
+   follow the sparse paths (4., 5.), on their plans.
 2. Dense path: sedumi_tpu_torch.sedumi() on all six bundled examples at
    full size (quantum, nb, arch0, control07, trto3, OH), plus nb with one
    redundant all-zero constraint (its Schur complement is singular, so
-   every iteration takes the masked-LDL' fallback).  arch0 must enter the
-   dd64 phase and launch K4-K7 in its solve.  quantum, nb, arch0 and the
+   every iteration takes the masked-LDL' fallback).  arch0 and control07
+   must enter the dd64 phase, launch K4-K7 and the K6 solve in their
+   solves and land where the K6/K5 composition landed them
+   (DD64_LANDINGS, up to the f64 phase's run noise); with deterministic
+   algorithms each lands bit for bit where it lands with the composition
+   in place of the fused solve (check_dd64_twins).  quantum, nb, arch0 and the
    redundant-row nb must pass the reference gate (rel <= 1e-6 vs the
    published optimum, pinf = dinf = 0, numerr < 2); the others must finish
    with finite outputs, and each prints its rel, pinf, dinf, numerr and
@@ -91,6 +100,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -170,11 +180,17 @@ def check_dd_residual(dev, gen):
     nbytes = 8.0 * (m * m + 3 * m)
     # per element: product + fma error term + TwoSum (6) + 2 adds
     b_ms, b_by = bound_ms(nbytes, 11.0 * m * m)
+    # the device times without the Python wrappers' host work: does K1
+    # lose to the library call there?
     return dict(name="dd_matvec_residual", route="cuda",
                 source="sedumi_tpu_torch/csrc/dd_residual.cu",
                 replaces="sedumi_tpu/pcg.py:56",
                 max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                graph_ms=graph_ms(lambda: dd_matvec_residual(M, v, rhs)),
+                library_graph_ms=graph_ms(
+                    lambda: torch.addmv(rhs, M, v, alpha=-1.0)),
+                library="torch.addmv")
 
 
 def check_psd_coo(dev, gen):
@@ -421,6 +437,7 @@ def check_dd_gemv(dev, gen):
     TwoSum chain is the n^2 term; the Ozaki route: its remainder slices lie
     within 4 n u of the row scale), so the tolerance is
     2 (n + 4)^2 u^2 sum_j |A_ij| |x_j|, u = 2^-53."""
+    import dd_emulation as ddemu
     from sedumi_tpu_torch import ddlinalg as dd
     from sedumi_tpu_torch import kernels
 
@@ -444,6 +461,11 @@ def check_dd_gemv(dev, gen):
         torch.cuda.synchronize()
         if kernels.LAUNCHES["dd_gemv"] != n0 + 1:
             fail("dd_gemv did not launch its kernel")
+        eh, el = ddemu.gemv(*(t.cpu().numpy() for t in (A, Alo, x, xlo)))
+        if not (bit_diff(kh.cpu(), torch.as_tensor(eh))[0]
+                and bit_diff(kl.cpu(), torch.as_tensor(el))[0]):
+            fail(f"dd_gemv is not bit-equal to the emulation of its lane "
+                 f"order on {label}")
         ph, pl = dd.dd_gemv_plain(A, Alo, x, xlo)
         n = A.shape[1]
         err = torch.abs((kh - ph) + (kl - pl))
@@ -452,8 +474,9 @@ def check_dd_gemv(dev, gen):
         worst_ratio = max(worst_ratio, float((err / tol).max()))
         if not bool(torch.all(err <= tol)):
             fail(f"dd_gemv kernel outside its bound on {label}")
-    print(f"K6 dd_gemv m=666 and both panel orientations: max err="
-          f"{worst_err:.3e}, worst err/tol={worst_ratio:.3e}", flush=True)
+    print(f"K6 dd_gemv m=666 and both panel orientations: bit-equal to "
+          f"tests/dd_emulation.py; max err={worst_err:.3e}, worst "
+          f"err/tol={worst_ratio:.3e}", flush=True)
     ms = cuda_ms(lambda: dd.dd_gemv(Ah, Al, xh, xl), 200)
     plain = cuda_ms(lambda: dd.dd_gemv_plain(Ah, Al, xh, xl), 20)
     # read Ah, Al, xh, xl, write yh, yl; ~14 flops per element
@@ -462,7 +485,101 @@ def check_dd_gemv(dev, gen):
                 source="sedumi_tpu_torch/csrc/dd_gemv.cu",
                 replaces="sedumi_tpu/ddlinalg.py:130",
                 max_abs_err=worst_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None,
+                graph_ms=graph_ms(lambda: dd.dd_gemv(Ah, Al, xh, xl)))
+
+
+# (m, label) of check_dd_chol_solve: control07's and arch0's Schur orders
+DD_SOLVE_SHAPES = ((666, "control07"), (174, "arch0"))
+
+
+def plain_chol_solve(f, bh, bl):
+    """dd_chol_solve_panels on the plain twins (dd_gemv_plain, the Ozaki
+    route, and dd_sub_plain) on the card."""
+    from sedumi_tpu_torch import ddlinalg as dd
+
+    saved = dd.dd_gemv, dd.dd_sub
+    dd.dd_gemv, dd.dd_sub = dd.dd_gemv_plain, dd.dd_sub_plain
+    try:
+        return dd.dd_chol_solve_panels(f, bh, bl)
+    finally:
+        dd.dd_gemv, dd.dd_sub = saved
+
+
+def check_dd_chol_solve(dev, gen):
+    """The fused dd_chol_solve (the "K6 solve" of csrc/dd_gemv.cu) at
+    control07's m = 666 (14 panels, the last 42 rows wide) and arch0's
+    m = 174 (4 panels, the last 30 rows), cond 1e14: one launch and no K6
+    or K5 launch a solve, and z bit for bit equal to the composition of
+    K6 and K5 launches (ddlinalg.dd_chol_solve_panels) and to the
+    emulation of their order (tests/dd_emulation.py), with a dd
+    right-hand side.  Against the plain twins' composition
+    (dd_gemv_plain, dd_sub_plain: the Ozaki route, whose products round
+    apart at eps^2) within 1e-18 of max|z| (the dd forward error at cond
+    1e14).  Times the fused solve, the composition and the plain twins,
+    back-to-back events and graph replays.  Bound: the factor's two
+    triangles (h and l) read once, b and z, over the memory rate; beside
+    it the chain of 2P dependent panel steps.  Returns the row at
+    m = 666."""
+    import dd_emulation as ddemu
+    from sedumi_tpu_torch import ddlinalg as dd
+    from sedumi_tpu_torch import kernels
+
+    row = None
+    for m, label in DD_SOLVE_SHAPES:
+        M = spd_with_cond(m, 1e14, gen).to(dev)
+        f = dd.dd_chol(M)
+        b = torch.randn(m, generator=gen, dtype=torch.float64).to(dev)
+        bl = b * 2.0**-54 * torch.rand(m, generator=gen,
+                                       dtype=torch.float64).to(dev)
+        before = dict(kernels.LAUNCHES)
+        zh, zl = dd.dd_chol_solve(f, b, bl)
+        torch.cuda.synchronize()
+        counts = {k: kernels.LAUNCHES[k] - before[k] for k in
+                  ("dd_chol_solve", "dd_gemv", "dd_accumulate")}
+        if counts != {"dd_chol_solve": 1, "dd_gemv": 0, "dd_accumulate": 0}:
+            fail(f"dd_chol_solve at m={m} launched {counts}, not the one "
+                 f"fused solve")
+        ph, pl = dd.dd_chol_solve_panels(f, b, bl)
+        eh, el = ddemu.dd_chol_solve(
+            f.Lh.cpu().numpy(), f.Ll.cpu().numpy(),
+            [(h.cpu().numpy(), l.cpu().numpy()) for h, l in f.inv_diag],
+            f.nb, b.cpu().numpy(), bl.cpu().numpy())
+        if not (bit_diff(zh, ph)[0] and bit_diff(zl, pl)[0]
+                and bit_diff(zh.cpu(), torch.as_tensor(eh))[0]
+                and bit_diff(zl.cpu(), torch.as_tensor(el))[0]):
+            fail(f"the fused dd_chol_solve at m={m} is not bit-equal to "
+                 f"the K6/K5 composition and its emulation")
+        qh, ql = plain_chol_solve(f, b, bl)
+        err = float(torch.abs((zh - qh) + (zl - ql)).max())
+        if not err <= 1e-18 * float(torch.abs(qh).max()):
+            fail(f"the fused dd_chol_solve at m={m} is {err:.3e} from the "
+                 f"plain twins' solve")
+        ms = cuda_ms(lambda: dd.dd_chol_solve(f, b, bl), 50)
+        gms = graph_ms(lambda: dd.dd_chol_solve(f, b, bl))
+        panels = cuda_ms(lambda: dd.dd_chol_solve_panels(f, b, bl), 10)
+        panels_graph = graph_ms(lambda: dd.dd_chol_solve_panels(f, b, bl))
+        plain = cuda_ms(lambda: plain_chol_solve(f, b, bl), 3, warmup=1)
+        npan = -(-m // f.nb)
+        # the triangles of L and the panels' inverses, h and l, read once;
+        # b (h, l) read, z written; ~14 flops per element each way
+        tri = m * (m + 1) / 2
+        b_ms, b_by = bound_ms(16.0 * (tri + npan * f.nb**2) + 32.0 * m,
+                              28.0 * tri)
+        line = dict(m=m, problem=label, panels=npan, chain=2 * npan,
+                    ms=ms, graph_ms=gms, panels_ms=panels,
+                    panels_graph_ms=panels_graph, plain_ms=plain,
+                    err_vs_plain=err, bound_ms=b_ms, bound_by=b_by)
+        print("K6 solve " + json.dumps(line), flush=True)
+        if row is None:
+            row = dict(name="dd_chol_solve", route="cuda",
+                       source="sedumi_tpu_torch/csrc/dd_gemv.cu",
+                       replaces="sedumi_tpu/ddlinalg.py:210",
+                       max_abs_err=err, ms=ms, plain_ms=plain,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       graph_ms=gms, panels_ms=panels,
+                       panels_graph_ms=panels_graph)
+    return row
 
 
 def spd_with_cond(m: int, cond: float, gen) -> torch.Tensor:
@@ -876,11 +993,21 @@ def jacobi_compare(A, got, want, sweeps, vectors) -> dict:
     return out
 
 
+def same_result(got, want, vectors) -> bool:
+    """Two Jacobi results (w, V, sweeps run) equal: w and V bit for bit
+    (NaN where the other has NaN), the same sweeps."""
+    return same_bits(got[0], want[0]) \
+        and (not vectors or same_bits(got[1], want[1])) \
+        and bool(torch.equal(got[2], want[2]))
+
+
 def jacobi_case(label, A, sweeps, vectors, time_it=True):
     """One batch through the kernel and its plain version on the card,
-    held to jacobi_compare's tolerance, and K12 to bit-equality with the
-    plain version's sweep count.  K12 runs the dispatch's plan; the line
-    names the variant and order it launched (its VARIANT_LAUNCHES key).
+    held to jacobi_compare's tolerance, K12 to bit-equality with the
+    plain version's sweep count and K13 to bit-equality with its
+    device-memory variant (w, V and sweeps).  Each runs the dispatch's
+    plan; the line names the variant and order it launched (its
+    VARIANT_LAUNCHES key).
     Prints the comparison, times the kernel, the plain version and
     torch.linalg.eigh (or eigvalsh) on the same batch, and the bound."""
     from sedumi_tpu_torch import kernels, lax_eigh
@@ -904,11 +1031,17 @@ def jacobi_case(label, A, sweeps, vectors, time_it=True):
                 vectors=vectors, sweeps_budget=sweeps,
                 **jacobi_compare(A, got, plain(A, sweeps, vectors), sweeps,
                                  vectors))
-    if not herm:
-        line["variant"], = variant
-        if not line["bit_equal"] or line["sweeps"] != line["sweeps_plain"]:
-            fail(f"{name} is not bit-equal to its plain version, or ran "
-                 f"other sweeps, on {label}: {json.dumps(line)}")
+    line["variant"], = variant
+    if not herm and (not line["bit_equal"]
+                     or line["sweeps"] != line["sweeps_plain"]):
+        fail(f"{name} is not bit-equal to its plain version, or ran "
+             f"other sweeps, on {label}: {json.dumps(line)}")
+    if herm:
+        ref = lax_eigh._jacobi_cuda(A, sweeps, vectors, 0, ("device", 1))
+        line["bit_equal_device"] = same_result(got, ref, vectors)
+        if not line["bit_equal_device"]:
+            fail(f"{name} is not bit-equal to its device-memory variant "
+                 f"on {label}: {json.dumps(line)}")
     if time_it and bool(torch.isfinite(A).all()):
         k, n = A.shape[0], A.shape[-1]
         reps = max(1, min(50, int(2e8 // (k * n ** 3))))
@@ -917,6 +1050,11 @@ def jacobi_case(label, A, sweeps, vectors, time_it=True):
                                    warmup=0)
         lib = torch.linalg.eigh if vectors else torch.linalg.eigvalsh
         line["library_ms"] = cuda_ms(lambda: lib(A), reps)
+        if herm:
+            # K13's device time without the host's launches (cuSOLVER's
+            # batched eigh cannot be captured: a failed capture leaves its
+            # handle failing every later call)
+            line["graph_ms"] = try_graph_ms(label, kernel)
         # read A once; write w (real) and V.  Flops per sweep of the
         # rotations at the padded order: 9 n^3 with vectors, 6 n^3
         # without (3 per updated element); complex 42 n^3 and 28 n^3 (14
@@ -989,6 +1127,50 @@ def check_k12_plans(dev, gen):
     print("K12 plans (bit-equal, ms): " + json.dumps(out), flush=True)
 
 
+# (order, dtype, batch) of check_k13_plans, with vectors: batch 1 on
+# both sides of each complex dtype's block/cluster crossover
+# (lax_eigh.CLUSTER_MIN_N: 56 in complex128, 72 in complex64) and K13's
+# timed case, 2 x 60, in both dtypes
+C64, C128 = torch.complex64, torch.complex128
+K13_PLAN_CASES = ((48, C128, 1), (56, C128, 1), (60, C128, 2),
+                  (84, C128, 1), (60, C64, 1), (72, C64, 1), (60, C64, 2))
+
+
+def check_k13_plans(dev, gen):
+    """K13 at the full budget, with vectors, in every fused plan that holds
+    the matrix (one block, 2-16 CTAs), at K13_PLAN_CASES: each bit-equal
+    to its device-memory variant (w, V and sweeps) and timed (ms per call
+    of the whole batch), beside torch.linalg.eigh, the plan that
+    lax_eigh.jacobi_plan picks and the fastest.  Prints one line; the
+    times are why CLUSTER_MIN_N is what it is for the complex dtypes."""
+    from sedumi_tpu_torch import lax_eigh
+
+    out = []
+    for n, dt, k in K13_PLAN_CASES:
+        A = nt_like(k, n, dt, gen).to(dev)
+        sweeps = lax_eigh._sweeps_for(n, lax_eigh._real_dtype(dt))
+        ref = lax_eigh._jacobi_cuda(A, sweeps, True, 0, ("device", 1))
+        plans = [("block", 1)] if lax_eigh.smem_bytes(n, dt, True) \
+            <= lax_eigh.SMEM_MAX else []
+        plans += [("cluster", c) for c in lax_eigh.CLUSTER_SIZES
+                  if lax_eigh.cluster_fits(n, dt, True, c)]
+        times = {}
+        for plan in plans:
+            got = lax_eigh._jacobi_cuda(A, sweeps, True, 0, plan)
+            if not same_result(got, ref, True):
+                fail(f"K13 {plan} at {k} x {n} {dt} is not bit-equal to "
+                     f"its device-memory variant")
+            times[plan_label(plan)] = cuda_ms(
+                lambda: lax_eigh._jacobi_cuda(A, sweeps, True, 0, plan), 10)
+        chosen = lax_eigh.jacobi_plan(n, dt, True, k, lax_eigh._sm_count(dev))
+        out.append(dict(n=n, dtype=str(dt), batch=k, sweeps=int(ref[2]),
+                        ms=times, plan=plan_label(chosen),
+                        fastest=min(times, key=times.get),
+                        eigh_ms=cuda_ms(lambda: torch.linalg.eigh(A), 10)))
+    print("K13 plans (bit-equal to device memory, ms): " + json.dumps(out),
+          flush=True)
+
+
 # K12's three rows (kernel-table name, case label): each timed at its
 # case, with the launches of that case's variant over the run's paths
 K12_ROWS = (("jacobi_eigh_f32 n=162", "arch0 f32 eigh"),
@@ -1008,14 +1190,16 @@ def check_jacobi(dev, gen):
     (1, 12), (2, 4) in one batch of order 12); 2500 blocks of order 4
     (sdp5k's); a batch of order 12 holding a NaN (one block) and one
     matrix of order 161 holding a NaN (a cluster of CTAs), each of which
-    must come back NaN after the two unconditional sweeps; K13 at
-    orders 8 and 60.  Returns K12's
-    three rows (K12_ROWS, each with its variant's launch key under
-    "count") and K13's two, each K13 build's timed at its first case."""
+    must come back NaN after the two unconditional sweeps; K13, each
+    case also bit for bit its device-memory variant, at orders 8 and 60
+    in both builds, complex128 at 120 and 200 (a cluster of CTAs) and a
+    complex128 matrix of order 121 holding a NaN (a cluster).  Then
+    check_k12_plans and check_k13_plans.  Returns K12's three rows
+    (K12_ROWS) and K13's two (each build timed at 2 x 60), each with its
+    variant's launch key under "count"."""
     from sedumi_tpu_torch import lax_eigh
     from sedumi_tpu_torch.linalg_ops import _pad_stack
 
-    C64, C128 = torch.complex64, torch.complex128
     sw = lax_eigh._sweeps_for
     csw = lax_eigh.coarse_sweeps_for
     lines, worst = {}, {}
@@ -1064,8 +1248,21 @@ def check_jacobi(dev, gen):
         rdt = lax_eigh._real_dtype(dt)
         case(f"herm {dt} n=60", nt_like(2, 60, dt, gen), sw(60, rdt), True)
         case(f"herm {dt} n=8", nt_like(4, 8, dt, gen), sw(8, rdt), True)
+    # complex128 at the first orders past one block: a cluster of CTAs
+    for n in (120, 200):
+        case(f"herm {C128} n={n}", nt_like(1, n, C128, gen), sw(n, F64),
+             True)
+    # K13's cluster variant on a NaN matrix: two sweeps
+    A = nt_like(1, 121, C128, gen)
+    A[0, 2, 5] = float("nan")
+    line = case("NaN order 121 complex128", A, sw(121, F64), True,
+                time_it=False)
+    if line["sweeps"] != 2 or ":cluster" not in line["variant"]:
+        fail(f"the complex NaN matrix ran {line['sweeps']} sweeps under "
+             f"{line['variant']}, not 2 under a cluster")
 
     check_k12_plans(dev, gen)
+    check_k13_plans(dev, gen)
 
     def row(name, line, replaces, src, count):
         return dict(name=name, route="cuda",
@@ -1074,19 +1271,21 @@ def check_jacobi(dev, gen):
                     max_abs_err=worst[line["kernel"]],
                     ms=line["ms"], plain_ms=line["plain_ms"],
                     bound_ms=line["bound_ms"], bound_by=line["bound_by"],
-                    library_ms=line["library_ms"])
+                    library_ms=line["library_ms"],
+                    **({"graph_ms": line["graph_ms"]}
+                       if line.get("graph_ms") is not None else {}))
 
     rows = [row(name, lines[label], "sedumi_tpu/lax_eigh.py:49",
                 "jacobi_eigh.cu", lines[label]["variant"])
             for name, label in K12_ROWS]
     rows += [row(name, lines[name], "sedumi_tpu/lax_eigh.py:187",
-                 "jacobi_herm.cu", name)
+                 "jacobi_herm.cu", lines[name]["variant"])
              for name in ("jacobi_eigh_herm", "jacobi_eigh_herm_c64")]
     print("K12/K13 rows timed at: " + ", ".join(
         f"{name} {label} ({lines[label]['variant']})"
         for name, label in K12_ROWS) + ", " + ", ".join(
-        f"{r['name']} {lines[r['name']]['case']}" for r in rows[3:]),
-        flush=True)
+        f"{r['name']} {lines[r['name']]['case']} "
+        f"({lines[r['name']]['variant']})" for r in rows[3:]), flush=True)
     return rows
 
 
@@ -1837,7 +2036,103 @@ def run_example(ex, gate: bool, pars=None):
     if gate and not (rel <= 1e-6 and info["pinf"] == 0
                      and info["dinf"] == 0 and info["numerr"] < 2):
         fail(f"{label}: reference gate not met")
-    return counts, dict(info, cx=cx)
+    return counts, dict(info, cx=cx, rel=rel)
+
+
+# Where arch0 and control07 land in f64 with the K6/K5 composition
+# (PERF.md section 5): rel, the iterations of each phase; pinf = dinf =
+# numerr = 0.  What the fused dd_chol_solve could move is held exactly by
+# check_dd64_twins; this gate on the main path's own runs allows only the
+# run noise of the f64 phase, whose Schur sums (index_add_'s atomics)
+# round differently from run to run.  Of 40 arch0 solves of PR 10's
+# build (the K6/K5 composition) and of this one, in turns in one process
+# (parent_bench.py --cases solves --problems arch0 --repeat 5), each
+# build landed once at dd64 7 and rel 3.18e-7, the others at f64 44 /
+# dd64 3 and rel 2.349e-7 to 2.376e-7; chip_smoke.py's own runs once at
+# f64 45 / dd64 7 and rel 4.823e-7 (2.03x; PERF.md section 6, NVIDIA H100
+# 80GB HBM3, 700 W).  So: f64 iterations within 1 of these, dd64 within
+# 4, rel within 2.5x.
+DD64_LANDINGS = {"arch0": (2.375e-07, {"f64": 44, "dd64": 3}),
+                 "control07": (1.285e-06, {"f64": 30, "dd64": 11})}
+DD64_SLACK = {"f64": 1, "dd64": 4}
+
+
+def check_dd64_landing(name, counts, info, dd_kernels):
+    """`name` entered dd64, launched every dd64 kernel (the fused solve
+    among them) and landed as in DD64_LANDINGS."""
+    rel0, phases0 = DD64_LANDINGS[name]
+    if "dd64" not in info["phases"]:
+        fail(f"{name} never entered the dd64 phase")
+    if any(counts.get(k, 0) == 0 for k in dd_kernels):
+        fail(f"{name}: a dd64 kernel never ran in its solve")
+    iters = {k: v["iters"] for k, v in info["phases"].items()}
+    rel = info["rel"]
+    if not (rel <= 2.5 * rel0 and info["pinf"] == 0 and info["dinf"] == 0
+            and info["numerr"] == 0 and iters.keys() == phases0.keys()
+            and all(abs(iters[k] - v) <= DD64_SLACK[k]
+                    for k, v in phases0.items())):
+        fail(f"{name} landed at rel={rel:.3e} with {iters}, not near "
+             f"rel={rel0:.3e} with {phases0}")
+
+
+def check_dd64_twins(names):
+    """The fused dd_chol_solve moves no landing.  With deterministic
+    algorithms (index_add_ in order, as tests/test_torch_cuda.py::
+    test_arch0_witness runs), each of `names` is solved as the main path
+    solves it and again with ddlinalg.dd_chol_solve_panels, the K6/K5
+    composition, in place of the fused solve: x and y must agree bit for
+    bit, and with them the phases' iterations and rel.  Prints a line per
+    problem (iterations, rel, each run's wall)."""
+    import sedumi_tpu_torch as st
+    from sedumi_tpu_torch import ddlinalg as dd
+    from sedumi_tpu_torch import kernels
+    from sedumi_tpu_torch.examples import load_example
+
+    fused = dd.dd_chol_solve
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for name in names:
+                ex = load_example(name)
+                runs = {}
+                for who, solve in (("fused", fused),
+                                   ("panels", dd.dd_chol_solve_panels)):
+                    dd.dd_chol_solve = solve
+                    n0 = kernels.LAUNCHES["dd_chol_solve"]
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    x, y, info = st.sedumi(ex.At, ex.b, ex.c, ex.K,
+                                           {"fid": 0}, device="cuda")
+                    torch.cuda.synchronize()
+                    cx = float(np.real(np.vdot(ex.c, x)))
+                    by = float(np.real(np.vdot(ex.b, y)))
+                    runs[who] = dict(
+                        x=x, y=y, wall_s=time.time() - t0,
+                        launches=kernels.LAUNCHES["dd_chol_solve"] - n0,
+                        iters={k: v["iters"]
+                               for k, v in info["phases"].items()},
+                        rel=max(abs(cx - ex.optval), abs(by - ex.optval))
+                        / abs(ex.optval))
+                f, p = runs["fused"], runs["panels"]
+                print(f"{name} deterministic: " + json.dumps(
+                    {who: {k: v for k, v in r.items() if k not in ("x", "y")}
+                     for who, r in runs.items()}), flush=True)
+                if f["launches"] == 0 or p["launches"] != 0 \
+                        or "dd64" not in f["iters"]:
+                    fail(f"{name} deterministic: the fused solve ran "
+                         f"{f['launches']} / {p['launches']} times, or "
+                         f"dd64 was never entered")
+                if not (np.array_equal(f["x"], p["x"])
+                        and np.array_equal(f["y"], p["y"])
+                        and f["iters"] == p["iters"]
+                        and f["rel"] == p["rel"]):
+                    fail(f"{name} deterministic: the fused solve landed at "
+                         f"{f['iters']} rel={f['rel']!r}, the composition "
+                         f"at {p['iters']} rel={p['rel']!r}")
+    finally:
+        dd.dd_chol_solve = fused
+        torch.use_deterministic_algorithms(False)
 
 
 # The mixed-ladder path's dense SOCP: eight Lorentz cones of order 50 and
@@ -2098,7 +2393,7 @@ MESH_SOLVES = [("OH_2Pi_STO-6GN9r12g1T2", {"panels": 2}, 2, "unsharded"),
 PANEL_KERNELS = ("dist_panel_chol", "dist_trisolve_fwd",
                  "dist_trisolve_bwd_contrib", "dist_trisolve_bwd_solve")
 OFF_MESH = ("ldl_masked", "ozaki_split", "dd_accumulate", "dd_gemv",
-            "dd_panel_chol")
+            "dd_chol_solve", "dd_panel_chol")
 
 
 def run_mesh(name, shape, nprocs, cx_unsharded=None):
@@ -2196,6 +2491,7 @@ def main() -> None:
     rows = [check_dd_residual(dev, gen), check_psd_coo(dev, gen),
             check_ldl_masked(dev, gen), check_ozaki_split(dev, gen),
             check_dd_elem(dev, gen), check_dd_gemv(dev, gen),
+            check_dd_chol_solve(dev, gen),
             check_dd_panel_chol(dev, gen), check_dd_residual_f32(dev, gen),
             check_psd_coo_f32(dev, gen), check_ldl_masked_f32(dev, gen)]
     rows += check_df_gemv(dev, gen)
@@ -2207,20 +2503,18 @@ def main() -> None:
     plan = [("quantum", True), ("nb", True), ("arch0", True),
             ("control07", False), ("trto3", False),
             ("OH_2Pi_STO-6GN9r12g1T2", False)]
-    dd_kernels = ("ozaki_split", "dd_accumulate", "dd_gemv", "dd_panel_chol")
+    dd_kernels = ("ozaki_split", "dd_accumulate", "dd_gemv", "dd_panel_chol",
+                  "dd_chol_solve")
     landed = {}
     for name, gate in plan:
         counts, info = run_example(load_example(name), gate)
         landed[name] = info["cx"]
         if counts.get("dd_matvec_residual", 0) == 0:
             fail(f"{name}: the compensated-residual kernel never ran")
-        if name == "arch0":
-            if counts.get("psd_contrib_coo", 0) == 0:
-                fail("arch0: the sparse PSD Schur kernel never ran")
-            if "dd64" not in info["phases"]:
-                fail("arch0 never entered the dd64 phase")
-            if any(counts.get(k, 0) == 0 for k in dd_kernels):
-                fail("arch0: a dd64 kernel never ran in its solve")
+        if name == "arch0" and counts.get("psd_contrib_coo", 0) == 0:
+            fail("arch0: the sparse PSD Schur kernel never ran")
+        if name in DD64_LANDINGS:
+            check_dd64_landing(name, counts, info, dd_kernels)
     counts, _ = run_example(with_zero_row(load_example("nb")), True)
     if counts.get("ldl_masked", 0) == 0:
         fail("nb+zero-row: the masked-LDL' fallback never ran")
@@ -2231,6 +2525,7 @@ def main() -> None:
     # host phases do
     if any(total[k] for k in JACOBI_NAMES):
         fail("a Jacobi kernel launched on the dense f64 path")
+    check_dd64_twins(DD64_LANDINGS)
     torch.cuda.empty_cache()
 
     # the mixed precision ladder, its counts zeroed just before and read
@@ -2350,7 +2645,8 @@ def main() -> None:
             "library_ms")
     # and, where a check gives them, its graph-replay and column-0 times
     extra = ("graph_ms", "library_graph_ms", "library", "column0_ms",
-             "column0_graph_ms", "column0_bound_ms")
+             "column0_graph_ms", "column0_bound_ms", "panels_ms",
+             "panels_graph_ms")
     print(json.dumps({"kernels": [
         {k: row[k] for k in keys + extra if k in keys or k in row}
         for row in rows]}), flush=True)

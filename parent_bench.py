@@ -1,0 +1,418 @@
+"""The port's redesigned kernels beside an earlier build of the same
+kernels, on one card.
+
+    python3 parent_bench.py --parent DIR [--cases tiles,panels,dd,k13,solves]
+                            [--plans lp20k,sdp5k,sdp1200]
+                            [--problems arch0,control07] [--repeat N]
+
+DIR holds another checkout of this repository (for example the parent
+commit, unpacked with git archive).  Its sedumi_tpu_torch is loaded under
+another module name (load_package), so both builds (each compiled into
+its own package's _build/) run in this one process on the same inputs.
+Each case times its calls in turns (earlier, this, this, earlier), back
+to back between CUDA events and, where the call can be captured, as the
+replay of a CUDA graph (chip_smoke.graph_ms), and reports each build's
+mean and runs.  The cases (all by default):
+
+* tiles: K8 and K10 on the plans of chip_smoke.py's sparse solves
+  (--plans; the tile storage A H A' at a random interior point,
+  chip_smoke.tile_case) in f64 and f32: the whole tile solve (K10), the
+  builds' solutions' largest difference, and at lp20k's widest level K8's
+  diagonal and off launches apart, the builds bit for bit equal;
+* panels: K14 and K15 at the mesh path's panel shapes
+  (chip_smoke.panel_case: OH's bs 128, mp 1024 and nb's bs 32, mp 128):
+  K14 on column 0 and over the columns of one factor, K15's forward
+  step, backward contribution and back solve, the builds within
+  chip_smoke.PANEL_TOL and this build bit for bit its emulation;
+* dd: each build's dd_chol_solve on its own dd_chol factor of one matrix
+  of cond 1e14 at control07's m = 666 and arch0's m = 174, and K6 on
+  control07's m x m refinement product, the builds' factors, solutions
+  and products bit for bit equal;
+* k13: K13 with vectors at 2 x 60 in complex128 and complex64 and at one
+  matrix of order 120 and 200 in complex128, beside torch.linalg.eigh,
+  the builds' eigenvalues within 4 n eps ||A|| of each other;
+* solves: whole solves of --problems (bundled examples) under 'auto' and
+  'mixed' (a warm-up solve each first), the turns repeated --repeat
+  times: each build's wall, iterations, phases with their walls, rel and
+  numerr, and how often each build landed at each (phases, rel).
+
+Prints a line per case's row, then one JSON line of all rows, the card's
+name and power limit.  Needs a CUDA device; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+WHO = ("earlier", "this", "this", "earlier")
+
+
+def load_package(root: str, name: str):
+    """Import ROOT/sedumi_tpu_torch as module `name`."""
+    init = os.path.join(root, "sedumi_tpu_torch", "__init__.py")
+    spec = importlib.util.spec_from_file_location(
+        name, init, submodule_search_locations=[os.path.dirname(init)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def old_module(name: str):
+    """The earlier build's submodule `name` (as in sedumi_tpu_torch)."""
+    return importlib.import_module(f"sedumi_tpu_torch_old.{name}")
+
+
+def turns(calls: dict, graph: bool = True, reps: int = 20) -> dict:
+    """Event and graph-replay ms of each build's call, in turns earlier,
+    this, this, earlier; the mean of each build's two runs."""
+    import chip_smoke as cs
+
+    ev = {"earlier": [], "this": []}
+    gr = {"earlier": [], "this": []}
+    for who in WHO:
+        ev[who].append(cs.cuda_ms(calls[who], reps))
+        if graph:
+            gr[who].append(cs.try_graph_ms(who, calls[who]))
+    out = {"event_ms": {k: sum(v) / len(v) for k, v in ev.items()},
+           "event_ms_runs": ev}
+    if graph:
+        out["graph_ms"] = {k: None if None in v else sum(v) / len(v)
+                           for k, v in gr.items()}
+        out["graph_ms_runs"] = gr
+    return out
+
+
+def report(out: dict, key: str, row: dict) -> None:
+    out[key] = row
+    print(f"{key}: {json.dumps(row)}", flush=True)
+
+
+# ------------------------------------------------------------------ tiles
+
+
+def plan_of(make, pars):
+    """The host plan route_engine makes for a problem (chip_smoke's
+    solves take the same route)."""
+    from sedumi_tpu_torch import solver
+    from sedumi_tpu_torch.params import Pars
+    from sedumi_tpu_torch.transform import pretransfo
+
+    A, b, c, K = make(np.random.default_rng(12345))
+    p = Pars.make(pars)
+    pre = pretransfo(A, b, c, K, p)
+    kind, plan = solver.route_engine(pre.At, pre.c, pre.layout, p)
+    if kind != "sparse":
+        raise RuntimeError("the problem did not take the sparse route")
+    return plan
+
+
+def diag_off_ms(kern, st, lv, reg, canceltol, sfx):
+    """(diag ms, off ms, tiles after both) of one build's K8 launches at
+    level lv; kern is that build's kernels module."""
+    from chip_smoke import cuda_ms
+
+    work = st.clone()
+    rung = torch.empty(lv["dslot"].numel(), dtype=torch.int32,
+                       device=st.device)
+    B = st.shape[-1]
+
+    def diag():
+        work.copy_(st)
+        kern.launch("tile_chol.cu", f"tile_diag{sfx}_launch",
+                    work.data_ptr(), lv["dslot"].data_ptr(), rung.data_ptr(),
+                    lv["dslot"].numel(), B, float(reg), float(canceltol))
+
+    diag()
+    after = work.clone()
+
+    def off():
+        work.copy_(after)
+        kern.launch("tile_chol.cu", f"tile_off{sfx}_launch",
+                    work.data_ptr(), lv["off_slot"].data_ptr(),
+                    lv["off_dslot"].data_ptr(), lv["off_slot"].numel(), B)
+
+    copy = cuda_ms(lambda: work.copy_(st), 20)
+    off()
+    return cuda_ms(diag, 20) - copy, cuda_ms(off, 20) - copy, work.clone()
+
+
+def tiles_case(old, dev, args) -> dict:
+    import chip_smoke as cs
+    from sedumi_tpu_torch import kernels
+    from sedumi_tpu_torch import sparse_chol as sc
+
+    osc = old_module("sparse_chol")
+    gen = torch.Generator().manual_seed(20261016)
+    solves = {name: (make, pars) for name, make, pars, _ in cs.SPARSE_SOLVES}
+    out = {}
+    for name in args.plans.split(","):
+        t0 = time.time()
+        plan = plan_of(*solves[name])
+        print(f"{name}: host plan {time.time() - t0:.1f}s", flush=True)
+        for dtype in (torch.float64, torch.float32):
+            sfx = "_f32" if dtype == torch.float32 else ""
+            aop, st = cs.tile_case(plan, dev, np.random.default_rng(20261016),
+                                   dtype)
+            levels = aop.levels
+            row = {}
+            if name == "lp20k":
+                wide = max(range(len(levels)),
+                           key=lambda i: (levels[i]["cols"].numel(),
+                                          levels[i]["pair_a"].numel()))
+                before = st.clone()
+                for lv in levels[:wide]:
+                    sc.tile_factor(before, lv, 0.0)
+                    sc.tile_update(before, lv)
+                lv = levels[wide]
+                d_old, o_old, w_old = diag_off_ms(old.kernels, before, lv,
+                                                  0.0, 1e-12, sfx)
+                d_new, o_new, w_new = diag_off_ms(kernels, before, lv, 0.0,
+                                                  1e-12, sfx)
+                row["k8_widest"] = {
+                    "cols": lv["dslot"].numel(),
+                    "off_tiles": lv["off_slot"].numel(),
+                    "diag_ms": {"earlier": d_old, "this": d_new},
+                    "off_ms": {"earlier": o_old, "this": o_new},
+                    "bit_equal": cs.bit_diff(w_old, w_new)[0]}
+            L = sc.factor_tiles(st, levels, 0.0)
+            rhs = torch.randn(aop.meta["ntiles_n"], generator=gen,
+                              dtype=torch.float64).to(dev, dtype)
+            calls = {"earlier": lambda: osc.tile_solve(L, rhs, levels),
+                     "this": lambda: sc.tile_solve(L, rhs, levels)}
+            x_old, x_new = calls["earlier"](), calls["this"]()
+            row["k10"] = turns(calls, graph=False, reps=10)
+            row["k10_max_diff"] = float((x_new - x_old).abs().max())
+            row["max_abs_x"] = float(x_old.abs().max())
+            row["levels"] = len(levels)
+            report(out, f"tiles {name}{sfx}", row)
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- panels
+
+
+def panel_steps(pn, c, bs: int, mp: int) -> dict:
+    """name -> a call of one build's wrapper (pn: its parallel.panels) on
+    the case's inputs, as chip_smoke.check_panel_kernels times them."""
+    nb = mp // bs
+    nb_loc = nb // 2
+    Cs, L, x, b = c["Cs"], c["L"], c["x"], c["b"]
+    row = L[(nb - 1) * bs:].contiguous()
+    bj = b[(nb - 1) * bs:].contiguous()
+    L3 = L[nb_loc * bs:].contiguous()
+    Ljj = L[:bs, :bs].contiguous()
+
+    def factor():
+        return [pn.panel_chol_step(C, j) for j, C in enumerate(Cs)]
+
+    return {
+        "k14_column0": lambda: pn.panel_chol_step(Cs[0], 0),
+        "k14_factor": factor,
+        "k15_fwd": lambda: pn.trisolve_fwd_step(row, x, bj, nb - 1),
+        "k15_contrib": lambda: pn.trisolve_bwd_contrib(L3, x, bs, nb_loc, 0),
+        "k15_bwd_solve": lambda: pn.trisolve_bwd_solve(Ljj, b[:bs], x[:bs]),
+    }
+
+
+def panels_case(old, dev, args) -> dict:
+    import chip_smoke as cs
+    from sedumi_tpu_torch.parallel import panels as pn
+
+    old_pn = old_module("parallel.panels")
+    gen = torch.Generator().manual_seed(20261016)
+    out = {}
+    for bs, mp in cs.PANEL_SHAPES:
+        c = cs.panel_case(bs, mp, gen, dev)
+        if not c["emu_ok"]:
+            cs.fail(f"this build differs from its emulation at bs={bs}")
+        calls = {"earlier": panel_steps(old_pn, c, bs, mp),
+                 "this": panel_steps(pn, c, bs, mp)}
+        lmax = float(c["L"].abs().max())
+        xmax = float(c["x"].abs().max())
+        for name in calls["this"]:
+            got = {who: calls[who][name]() for who in calls}
+            if name == "k14_factor":
+                got = {who: torch.stack(v) for who, v in got.items()}
+            diff = float((got["this"] - got["earlier"]).abs().max())
+            scale = lmax if name.startswith("k14") else xmax
+            if not diff <= cs.PANEL_TOL * scale:
+                cs.fail(f"{name} bs={bs}: the builds differ by {diff!r}")
+            row = turns({who: calls[who][name] for who in calls})
+            row["max_diff"], row["of"] = diff, scale
+            report(out, f"panels bs={bs} mp={mp} {name}", row)
+    return out
+
+
+# --------------------------------------------------------------------- dd
+
+
+def dd_case(old, dev, args) -> dict:
+    import chip_smoke as cs
+    from sedumi_tpu_torch import ddlinalg as dd
+
+    odd = old_module("ddlinalg")
+    gen = torch.Generator().manual_seed(20261017)
+    out = {}
+
+    def same(got):
+        return all(cs.bit_diff(a, c)[0]
+                   for a, c in zip(got["this"], got["earlier"]))
+
+    for m, label in cs.DD_SOLVE_SHAPES:
+        M = cs.spd_with_cond(m, 1e14, gen).to(dev)
+        b = torch.randn(m, generator=gen, dtype=torch.float64).to(dev)
+        f, fo = dd.dd_chol(M), odd.dd_chol(M)
+        if not (cs.bit_diff(f.Lh, fo.Lh)[0] and cs.bit_diff(f.Ll, fo.Ll)[0]):
+            cs.fail(f"the builds' dd_chol factors differ at m={m}")
+        calls = {"earlier": lambda: odd.dd_chol_solve(fo, b),
+                 "this": lambda: dd.dd_chol_solve(f, b)}
+        if not same({k: v() for k, v in calls.items()}):
+            cs.fail(f"the builds' dd_chol_solve differ at m={m}")
+        report(out, f"dd_chol_solve m={m} ({label})", turns(calls))
+    m = 666
+    Ah = torch.randn(m, m, generator=gen, dtype=torch.float64).to(dev)
+    Al = Ah * 2.0**-54
+    xh = torch.randn(m, generator=gen, dtype=torch.float64).to(dev)
+    xl = xh * 2.0**-54
+    calls = {"earlier": lambda: odd.dd_gemv(Ah, Al, xh, xl),
+             "this": lambda: dd.dd_gemv(Ah, Al, xh, xl)}
+    if not same({k: v() for k, v in calls.items()}):
+        cs.fail("the builds' dd_gemv differ at m=666")
+    report(out, "dd_gemv m=666", turns(calls, reps=200))
+    return out
+
+
+# -------------------------------------------------------------------- k13
+
+
+def k13_case(old, dev, args) -> dict:
+    import chip_smoke as cs
+    from sedumi_tpu_torch import lax_eigh
+
+    ole = old_module("lax_eigh")
+    gen = torch.Generator().manual_seed(20261017)
+    out = {}
+    for k, n, dt in ((2, 60, torch.complex128), (2, 60, torch.complex64),
+                     (1, 120, torch.complex128), (1, 200, torch.complex128)):
+        A = cs.nt_like(k, n, dt, gen).to(dev)
+        sweeps = lax_eigh._sweeps_for(n, lax_eigh._real_dtype(dt))
+        calls = {"earlier": lambda: ole._jacobi(A, sweeps, True),
+                 "this": lambda: lax_eigh._jacobi(A, sweeps, True)}
+        got = {who: c() for who, c in calls.items()}
+        eps = float(torch.finfo(lax_eigh._real_dtype(dt)).eps)
+        tol = 4 * n * eps * float(got["earlier"][0].abs().max())
+        diff = float((torch.sort(got["this"][0]).values
+                      - torch.sort(got["earlier"][0]).values).abs().max())
+        if not diff <= tol:
+            cs.fail(f"K13 {k} x {n} {dt}: the builds differ by {diff!r}")
+        reps = 10 if n <= 60 else 3
+        row = turns(calls, graph=False, reps=reps)
+        row["eigh_ms"] = cs.cuda_ms(lambda: torch.linalg.eigh(A), reps)
+        row["plan"] = lax_eigh.jacobi_plan(
+            n, dt, True, k, lax_eigh._sm_count(dev))
+        row["max_diff"], row["tol"] = diff, tol
+        report(out, f"K13 {k} x {n} {dt}", row)
+    return out
+
+
+# ----------------------------------------------------------------- solves
+
+
+def solve(pkg, name: str, pars: dict) -> dict:
+    from sedumi_tpu_torch.examples import load_example
+
+    ex = load_example(name)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    x, y, info = pkg.sedumi(ex.At, ex.b, ex.c, ex.K, {"fid": 0, **pars},
+                            device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    cx = float(np.real(np.vdot(ex.c, x)))
+    by = float(np.real(np.vdot(ex.b, y)))
+    return dict(wall_s=wall, iter=info["iter"], numerr=info["numerr"],
+                rel=max(abs(cx - ex.optval), abs(by - ex.optval))
+                / abs(ex.optval), phases=info["phases"])
+
+
+def solves_case(old, dev, args) -> dict:
+    import sedumi_tpu_torch as st
+
+    pkgs = {"earlier": old, "this": st}
+    for who in pkgs:                       # warm-up: first-call costs
+        solve(pkgs[who], "arch0", {})
+    out = {}
+    for name in args.problems.split(","):
+        for pars in ({}, {"dtype": "mixed"}):
+            runs = {"earlier": [], "this": []}
+            for who in WHO * args.repeat:
+                runs[who].append(solve(pkgs[who], name, pars))
+            key = f"{name} {json.dumps(pars) if pars else 'auto'}"
+            report(out, key, runs)
+            landed = {who: {} for who in runs}
+            for who, rs in runs.items():
+                for r in rs:
+                    at = json.dumps({p: v["iters"]
+                                     for p, v in r["phases"].items()}) \
+                        + f" rel {r['rel']:.4g}"
+                    landed[who][at] = landed[who].get(at, 0) + 1
+            report(out, f"{key} landings", landed)
+    return out
+
+
+CASES = {"tiles": tiles_case, "panels": panels_case, "dd": dd_case,
+         "k13": k13_case, "solves": solves_case}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", required=True)
+    ap.add_argument("--cases", default=",".join(CASES))
+    ap.add_argument("--plans", default="lp20k,sdp5k,sdp1200")
+    ap.add_argument("--problems", default="arch0,control07")
+    ap.add_argument("--repeat", type=int, default=1)
+    args = ap.parse_args()
+    cases = args.cases.split(",")
+    if not set(cases) <= set(CASES):
+        ap.error(f"--cases: choose from {', '.join(CASES)}")
+    if not torch.cuda.is_available():
+        print("no CUDA device: parent_bench.py needs one card",
+              file=sys.stderr)
+        sys.exit(1)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    sys.path.insert(0, os.path.join(here, "tests"))   # the emulations
+    from sedumi_tpu_torch import kernels
+
+    old = load_package(os.path.abspath(args.parent), "sedumi_tpu_torch_old")
+    t0 = time.time()
+    kernels.build_all()
+    old.kernels.build_all()
+    print(f"built both builds' kernels in {time.time() - t0:.1f}s",
+          flush=True)
+    dev = torch.device("cuda")
+    out = {}
+    for case in cases:
+        out.update(CASES[case](old, dev, args))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"parent_bench": out, "card": smi}), flush=True)
+    print(smi, flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,8 @@
-// The batched round-robin cyclic Jacobi sweep shared by K12
-// (jacobi_eigh.cu, real symmetric) and K13 (jacobi_herm.cu, complex
+// The batched round-robin cyclic Jacobi sweep in device memory, shared by
+// K12 (jacobi_eigh.cu, real symmetric) and K13 (jacobi_herm.cu, complex
 // Hermitian); see lax_eigh.py for the algorithm and its plain version.
-// K13 runs both of its variants below; K12 runs its own fused block and
-// cluster sweeps (jacobi_eigh.cu) and takes the device-memory variant
-// here only beyond the largest cluster's capacity.
+// Both run their fused block and cluster sweeps (jacobi_fused.cuh) and
+// take this variant only beyond the largest cluster's capacity.
 //
 // One block per matrix, one launch per sweep.  A round is three steps
 // between barriers: the threads k < n/2 compute the rotation of pair k
@@ -19,21 +18,18 @@
 // `sweeps` launch pairs without waiting.  A launch whose group is done
 // returns at once.
 //
-// Storage: A and V in dynamic shared memory, rows padded to an odd stride
-// n + 1 (conflict-free column steps), when they fit in the 227 KB a block
-// may use (the SMEM variant: loaded at the start of each sweep, stored at
-// its end); otherwise the sweep works on them in device memory
-// (the device-memory variant; at the orders it serves they stay in the
-// 50 MB L2).  The round's rotations (n elements, which the final
-// reduction's 64 reals reuse) and pivot pairs (n int16) are in shared
-// memory in both.
+// A and V stay in device memory (at the orders this variant serves they
+// stay in the 50 MB L2).  The round's rotations (n elements, which the
+// final reduction's 64 reals reuse) and pivot pairs (n int16) are in
+// shared memory.
 //
 // Every product and sum rounds on its own (--fmad=false), so each
 // rotation rounds as the plain version's elementwise expressions do.
 //
-// Traits provide: E (element), R (real type), R re(E), E rotation from
-// (a_pp, a_qq, a_pq) as (c, s), the row and column updates of a pair, and
-// |e|^2.
+// Traits provide: E (element), R (real type), R re(E), the rotation from
+// (a_pp, a_qq, a_pq) as a real cosine c and an element sine s, E
+// cosine(R c) (the element the updates multiply by), the row and column
+// updates of a pair, and |e|^2.
 
 #pragma once
 
@@ -84,7 +80,7 @@ __device__ __forceinline__ R nanmax(R a, R b) {
   return (b != b || b > a) ? b : a;
 }
 
-template <typename Tr, bool VEC, bool SMEM>
+template <typename Tr, bool VEC>
 __global__ void __launch_bounds__(MAX_THREADS)
     sweep_kernel(typename Tr::E *__restrict__ gA,
                  typename Tr::E *__restrict__ gV,
@@ -102,24 +98,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int half = n / 2;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  // an odd row stride in shared memory keeps a warp's column accesses
-  // (consecutive rows of one column) on distinct banks
-  const int ld = SMEM ? n + 1 : n;
+  const int ld = n;
   E *a = gA + b * nn;
   E *v = gV + b * nn;
-  size_t used = 0;
-  if (SMEM) {
-    E *sa = sm, *sv = sm + (size_t)n * ld;
-    used = (VEC ? 2 : 1) * (size_t)n * ld;
-    for (int i = warp; i < n; i += nwarps)
-      for (int j = lane; j < n; j += 32) {
-        sa[i * ld + j] = a[(size_t)i * n + j];
-        if (VEC) sv[i * ld + j] = v[(size_t)i * n + j];
-      }
-    a = sa;
-    v = sv;
-  }
-  E *cs = sm + used;  // c[0, half), s[half, n); then the reduction
+  E *cs = sm;  // c[0, half), s[half, n); then the reduction
   const int cs_len = (int)((n * sizeof(E) > 64 * sizeof(R))
                                ? n : (64 * sizeof(R) + sizeof(E) - 1)
                                          / sizeof(E));
@@ -149,9 +131,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
       }
       pq[k] = (short)p;
       pq[half + k] = (short)q;
+      R c;
       Tr::rotation(a[(size_t)p * ld + p], a[(size_t)q * ld + q],
-                   a[(size_t)p * ld + q], quarter_eps, inv_eps, cs[k],
+                   a[(size_t)p * ld + q], quarter_eps, inv_eps, c,
                    cs[half + k]);
+      cs[k] = Tr::cosine(c);
     }
     __syncthreads();
     // rows: A <- G' A; one warp per pair, its lanes along the row
@@ -207,14 +191,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
     const R dn = sqrt(sd);
     ratio[b] = sqrt(so) / (dn > (R)1e-30 ? dn : (R)1e-30);
   }
-  if (SMEM) {
-    E *ga = gA + b * nn, *gv = gV + b * nn;
-    for (int i = warp; i < n; i += nwarps)
-      for (int j = lane; j < n; j += 32) {
-        ga[(size_t)i * n + j] = a[i * ld + j];
-        if (VEC) gv[(size_t)i * n + j] = v[i * ld + j];
-      }
-  }
 }
 
 // After sweep `sweep` (0-based): the group's max ratio; the group is done
@@ -240,7 +216,7 @@ __global__ void check_kernel(const R *__restrict__ ratio, int *done,
   }
 }
 
-template <typename Tr, bool VEC, bool SMEM>
+template <typename Tr, bool VEC>
 int launch_variant(typename Tr::E *A, typename Tr::E *V, const int *sched,
                    typename Tr::R *ratio, int *done, int *nsw, int batch,
                    int groups, int n, int sweeps, double eps,
@@ -251,10 +227,8 @@ int launch_variant(typename Tr::E *A, typename Tr::E *V, const int *sched,
                               ? n * sizeof(E)
                               : ((64 * sizeof(R) + sizeof(E) - 1) / sizeof(E))
                                     * sizeof(E);
-  const size_t smem =
-      (SMEM ? (VEC ? 2 : 1) * (size_t)n * (n + 1) * sizeof(E) : 0)
-      + cs_bytes + 2 * (size_t)n;
-  auto kern = sweep_kernel<Tr, VEC, SMEM>;
+  const size_t smem = cs_bytes + 2 * (size_t)n;
+  auto kern = sweep_kernel<Tr, VEC>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   // one warp per pair of a round, at most MAX_THREADS
@@ -277,7 +251,7 @@ int launch_variant(typename Tr::E *A, typename Tr::E *V, const int *sched,
 template <typename Tr>
 int launch(void *A, void *V, const int *sched, void *ratio, int *done,
            int *nsw, int batch, int groups, int n, int sweeps, int vectors,
-           double eps, int smem, void *stream) {
+           double eps, void *stream) {
   using E = typename Tr::E;
   using R = typename Tr::R;
   E *a = static_cast<E *>(A);
@@ -286,19 +260,11 @@ int launch(void *A, void *V, const int *sched, void *ratio, int *done,
   cudaStream_t s = (cudaStream_t)stream;
   if (n < 2 || n % 2 || n > 32767 || groups < 1 || batch % groups)
     return (int)cudaErrorInvalidValue;
-  if (vectors)
-    return smem ? launch_variant<Tr, true, true>(a, v, sched, rt, done, nsw,
-                                                 batch, groups, n, sweeps,
-                                                 eps, s)
-                : launch_variant<Tr, true, false>(a, v, sched, rt, done, nsw,
-                                                  batch, groups, n, sweeps,
-                                                  eps, s);
-  return smem ? launch_variant<Tr, false, true>(a, v, sched, rt, done, nsw,
-                                                batch, groups, n, sweeps, eps,
-                                                s)
-              : launch_variant<Tr, false, false>(a, v, sched, rt, done, nsw,
-                                                 batch, groups, n, sweeps,
-                                                 eps, s);
+  return vectors ? launch_variant<Tr, true>(a, v, sched, rt, done, nsw,
+                                            batch, groups, n, sweeps, eps, s)
+                 : launch_variant<Tr, false>(a, v, sched, rt, done, nsw,
+                                             batch, groups, n, sweeps, eps,
+                                             s);
 }
 
 }  // namespace jacobi

@@ -23,6 +23,8 @@ a CUDA tensor, or raises; only a CPU tensor takes the plain-PyTorch twin:
   K5 dd_accumulate, dd_add / dd_sub,
      two_prod_cols                   csrc/dd_elem.cu
   K6 dd_gemv                         csrc/dd_gemv.cu (twin: the Ozaki route)
+  K6 solve: dd_chol_solve            csrc/dd_gemv.cu (twin: the panel
+                                     composition, dd_chol_solve_panels)
   K7 dd_panel_chol                   csrc/dd_chol.cu
 
 dd_accumulate updates its first two arguments in place (the reference's
@@ -321,14 +323,24 @@ def dd_gemv(Ah, Al, xh, xl):
 
 class DdCholFactor(NamedTuple):
     """Double-double Cholesky L L' = A, with the dd inverses of the
-    diagonal panels (one (inv_h, inv_l) pair per panel, rows of inv(L_pp))
-    and ok = no pivot was replaced (a 0-dim bool tensor)."""
+    diagonal panels (panel k's w x w inverse, rows of inv(L_kk), in the
+    top left corner of inv_h[k] + inv_l[k], [P, nb, nb]) and ok = no pivot
+    was replaced (a 0-dim bool tensor)."""
 
     Lh: torch.Tensor
     Ll: torch.Tensor
-    inv_diag: list
+    inv_h: torch.Tensor
+    inv_l: torch.Tensor
     nb: int
     ok: torch.Tensor
+
+    @property
+    def inv_diag(self) -> list:
+        """(inv_h, inv_l) of each panel, its w x w corner."""
+        m = self.Lh.shape[0]
+        return [(self.inv_h[k, :w, :w], self.inv_l[k, :w, :w])
+                for k, w in enumerate(min(self.nb, m - p0)
+                                      for p0 in range(0, m, self.nb))]
 
 
 def dd_panel_chol_plain(Sh, Sl):
@@ -408,9 +420,10 @@ def dd_chol(Ah: torch.Tensor, Al: torch.Tensor | None = None,
         Al = torch.zeros_like(Ah)
     Lh = torch.zeros(m, m, dtype=_F64, device=Ah.device)
     Ll = torch.zeros_like(Lh)
+    inv_h = torch.zeros(-(-m // nb), nb, nb, dtype=_F64, device=Ah.device)
+    inv_l = torch.zeros_like(inv_h)
     ok = torch.ones((), dtype=torch.bool, device=Ah.device)
-    inv_diag = []
-    for p0 in range(0, m, nb):
+    for k, p0 in enumerate(range(0, m, nb)):
         p1 = min(p0 + nb, m)
         Sh, Sl = Ah[p0:, p0:p1], Al[p0:, p0:p1]
         if p0:
@@ -419,19 +432,22 @@ def dd_chol(Ah: torch.Tensor, Al: torch.Tensor | None = None,
             Sh, Sl = dd_sub(Sh, Sl, Uh, Ul)
         Ph, Pl, Ih, Il, okp = dd_panel_chol(Sh, Sl)
         Lh[p0:, p0:p1], Ll[p0:, p0:p1] = Ph, Pl
-        inv_diag.append((Ih, Il))
+        inv_h[k, :p1 - p0, :p1 - p0], inv_l[k, :p1 - p0, :p1 - p0] = Ih, Il
         ok = ok & okp
-    return DdCholFactor(Lh, Ll, inv_diag, nb, ok)
+    return DdCholFactor(Lh, Ll, inv_h, inv_l, nb, ok)
 
 
-def dd_chol_solve(f: DdCholFactor, bh: torch.Tensor,
-                  bl: torch.Tensor | None = None):
+def dd_chol_solve_panels(f: DdCholFactor, bh: torch.Tensor,
+                         bl: torch.Tensor | None = None):
     """Solve L L' x = b in dd, blockwise: dd_gemv on the panels and on the
-    diagonal inverses (K6 on the card)."""
+    diagonal inverses, dd_sub between (K6 and K5 launches on the card).
+    dd_chol_solve's route on the CPU; on the card the fused solve's twin,
+    which it equals bit for bit."""
     m = f.Lh.shape[0]
     nb = f.nb
     if bl is None:
         bl = torch.zeros_like(bh)
+    inv = f.inv_diag
     xh, xl = torch.zeros_like(bh), torch.zeros_like(bh)
     # forward: L y = b
     for p0 in range(0, m, nb):
@@ -441,7 +457,7 @@ def dd_chol_solve(f: DdCholFactor, bh: torch.Tensor,
             uh, ul = dd_gemv(f.Lh[p0:p1, :p0], f.Ll[p0:p1, :p0],
                              xh[:p0], xl[:p0])
             rh, rl = dd_sub(rh, rl, uh, ul)
-        Ih, Il = f.inv_diag[p0 // nb]
+        Ih, Il = inv[p0 // nb]
         xh[p0:p1], xl[p0:p1] = dd_gemv(Ih, Il, rh, rl)
     # backward: L' z = y
     zh, zl = torch.zeros_like(bh), torch.zeros_like(bh)
@@ -452,6 +468,35 @@ def dd_chol_solve(f: DdCholFactor, bh: torch.Tensor,
             uh, ul = dd_gemv(f.Lh[p1:, p0:p1].T, f.Ll[p1:, p0:p1].T,
                              zh[p1:], zl[p1:])
             rh, rl = dd_sub(rh, rl, uh, ul)
-        Ih, Il = f.inv_diag[p0 // nb]
+        Ih, Il = inv[p0 // nb]
         zh[p0:p1], zl[p0:p1] = dd_gemv(Ih.T, Il.T, rh, rl)
+    return zh, zl
+
+
+def dd_chol_solve(f: DdCholFactor, bh: torch.Tensor,
+                  bl: torch.Tensor | None = None):
+    """Solve L L' x = b in dd (bl None means 0).  On the card one launch
+    of the fused solve (csrc/dd_gemv.cu, a cluster of 16 CTAs), bit for
+    bit dd_chol_solve_panels; an order whose solution copies do not fit
+    the CTAs' shared memory (m > 5472 at nb = 48) raises.  On the CPU
+    dd_chol_solve_panels."""
+    if not bh.is_cuda:
+        return dd_chol_solve_panels(f, bh, bl)
+    m = f.Lh.shape[0]
+    bh = bh.contiguous()
+    if bl is not None:
+        bl = bl.contiguous()
+        kernels.check_cuda(bl, dtype=_F64)
+    kernels.check_cuda(bh, f.Lh, f.Ll, f.inv_h, f.inv_l, dtype=_F64)
+    if bh.shape != (m,) or (bl is not None and bl.shape != (m,)) \
+            or f.Ll.shape != (m, m) or f.inv_h.shape[1:] != (f.nb, f.nb):
+        raise ValueError(f"dd_chol_solve: L {tuple(f.Lh.shape)}, b "
+                         f"{tuple(bh.shape)} do not match")
+    zh, zl = torch.empty_like(bh), torch.empty_like(bh)
+    kernels.launch("dd_gemv.cu", "dd_chol_solve_launch", f.Lh.data_ptr(),
+                   f.Ll.data_ptr(), f.Lh.stride(0), f.inv_h.data_ptr(),
+                   f.inv_l.data_ptr(), bh.data_ptr(),
+                   None if bl is None else bl.data_ptr(), m, f.nb,
+                   zh.data_ptr(), zl.data_ptr())
+    kernels.LAUNCHES["dd_chol_solve"] += 1
     return zh, zl

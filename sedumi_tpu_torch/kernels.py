@@ -33,9 +33,8 @@ NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 # A, V, schedule, ratio, done, sweeps run; batch, groups, n, sweeps,
-# vectors; eps; K13: shared-memory variant; K12: variant, cluster size
-_JACOBI_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _P]
-_JACOBI_REAL_ARGS = _JACOBI_ARGS[:-1] + [_I, _P]
+# vectors; eps; variant, cluster size
+_JACOBI_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I, _P]
 # source file -> {C launch function: argtypes}
 SOURCES = {
     "dd_residual.cu": {
@@ -60,7 +59,9 @@ SOURCES = {
         "dd_add_launch": [_P, _P, _P, _P, _I, _P, _P, _LL, _P],
         "two_prod_cols_launch": [_P, _P, _I, _P, _P, _LL, _P]},
     "dd_gemv.cu": {
-        "dd_gemv_launch": [_P, _P, _LL, _LL, _P, _P, _I, _I, _P, _P, _P]},
+        "dd_gemv_launch": [_P, _P, _LL, _LL, _P, _P, _I, _I, _P, _P, _P],
+        "dd_chol_solve_launch": [_P, _P, _LL, _P, _P, _P, _P, _I, _I,
+                                 _P, _P, _P]},
     "dd_chol.cu": {
         "dd_panel_chol_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P]},
     "tile_chol.cu": {
@@ -80,8 +81,8 @@ SOURCES = {
         "df_matvec_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "df_vecmat_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P]},
     "jacobi_eigh.cu": {
-        "jacobi_eigh_f64_launch": _JACOBI_REAL_ARGS,
-        "jacobi_eigh_f32_launch": _JACOBI_REAL_ARGS},
+        "jacobi_eigh_f64_launch": _JACOBI_ARGS,
+        "jacobi_eigh_f32_launch": _JACOBI_ARGS},
     "jacobi_herm.cu": {
         "jacobi_herm_c128_launch": _JACOBI_ARGS,
         "jacobi_herm_c64_launch": _JACOBI_ARGS},
@@ -98,6 +99,7 @@ SOURCES = {
 # *_c64 names)
 LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "ozaki_split": 0, "dd_accumulate": 0, "dd_gemv": 0,
+            "dd_chol_solve": 0,
             "dd_panel_chol": 0, "tile_factor": 0, "tile_update": 0,
             "tile_solve": 0, "tile_factor_f32": 0, "tile_update_f32": 0,
             "tile_solve_f32": 0, "dd_matvec_residual_f32": 0,
@@ -107,8 +109,8 @@ LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "dist_panel_chol": 0, "dist_trisolve_fwd": 0,
             "dist_trisolve_bwd_contrib": 0, "dist_trisolve_bwd_solve": 0}
 
-# K12's launches per variant and order (lax_eigh.variant_key), beside
-# LAUNCHES
+# K12's and K13's launches per variant and order (lax_eigh.variant_key),
+# beside LAUNCHES
 VARIANT_LAUNCHES: dict[str, int] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

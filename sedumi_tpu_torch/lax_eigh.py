@@ -22,10 +22,11 @@ G[qp] = -s annihilates A[p, q] by the stable half-angle formulas
 jacobi_eigh/jacobi_eigvalsh (kernel K12, csrc/jacobi_eigh.cu, f64 and f32
 builds) and jacobi_eigh_herm (kernel K13, csrc/jacobi_herm.cu, complex128
 and complex64) launch the kernels on CUDA tensors and raise if they
-cannot; on CPU tensors they run the plain-PyTorch versions below.  K12
-runs one of three variants, which jacobi_plan picks from the order, the
-dtype and the batch: one block per matrix, a thread-block cluster per
-matrix, or (beyond the largest cluster's capacity) device memory.
+cannot; on CPU tensors they run the plain-PyTorch versions below.  Both
+run one of three variants (csrc/jacobi_fused.cuh, csrc/jacobi_common.cuh),
+which jacobi_plan picks from the order, the dtype and the batch: one
+block per matrix, a thread-block cluster per matrix, or (beyond the
+largest cluster's capacity) device memory.
 """
 
 from __future__ import annotations
@@ -280,14 +281,15 @@ _KERNELS = {
           "jacobi_eigh_herm_c64"),
 }
 _SCHED: dict = {}
-# K12's launches per variant and order, beside kernels.LAUNCHES' per
-# build, e.g. "jacobi_eigh_f32:cluster16@322"; cleared with it by
-# kernels.reset_launch_counts
+# K12's and K13's launches per variant and order, beside
+# kernels.LAUNCHES' per build, e.g. "jacobi_eigh_f32:cluster16@322";
+# cleared with it by kernels.reset_launch_counts
 VARIANT_LAUNCHES = kernels.VARIANT_LAUNCHES
 
 
 def variant_key(name: str, variant: str, cluster: int, n: int) -> str:
-    """VARIANT_LAUNCHES' key of one K12 build, plan and (even) order."""
+    """VARIANT_LAUNCHES' key of one K12/K13 build, plan and (even)
+    order."""
     return f"{name}:{variant}{cluster if variant == 'cluster' else ''}@{n}"
 
 
@@ -302,28 +304,28 @@ def _schedule(n: int, device) -> torch.Tensor:
 
 def smem_bytes(n: int, dtype: torch.dtype, with_vectors: bool) -> int:
     """Dynamic shared memory of one block holding a whole matrix of even
-    order n (K12's block variant, K13's shared-memory variant): A (and V)
-    with rows padded to n + 1, the round's rotations (n elements, which
-    the final reduction's 64 reals reuse) and its pivot pairs (n int16).
-    At most SMEM_MAX with vectors up to order 168 in f32, 118 in f64 and
-    complex64, 84 in complex128."""
+    order n (the block variant, csrc/jacobi_fused.cuh block_smem): A (and
+    V) with rows padded to n + 1, the round's rotations (max(n/2, 32) of
+    two elements each, which the final reduction's 64 reals reuse) and
+    its pivot pairs (n/2 ints).  At most SMEM_MAX with vectors up to order
+    168 in f32, 118 in f64 and complex64, 84 in complex128."""
     esize = torch.empty((), dtype=dtype).element_size()
-    rsize = torch.empty((), dtype=_real_dtype(dtype)).element_size()
     mats = (2 if with_vectors else 1) * n * (n + 1) * esize
-    return mats + max(n * esize, 64 * rsize) + 2 * n
+    return mats + max(n, 64) * esize + 2 * n
 
 
-# K12's variants, numbered as csrc/jacobi_eigh.cu numbers them
+# the variants, numbered as csrc/jacobi_fused.cuh numbers them
 VARIANTS = ("device", "block", "cluster")
 # cluster sizes; above 8 CTAs the kernel sets the non-portable attribute
 CLUSTER_SIZES = (2, 4, 8, 16)
 MAX_CLUSTER = CLUSTER_SIZES[-1]
 # measured on the card (chip_smoke.check_k12_plans, PERF.md section 6):
-# by element size, the order from which 16 CTAs beat one block on a
-# matrix alone (f32 from 100, f64 from 80); and where one block holds the
-# matrix, the fewest CTAs that beat it (2 CTAs trail one block at every
-# order and batch measured)
-CLUSTER_MIN_N = {4: 100, 8: 80}
+# by dtype, the order from which 16 CTAs beat one block on a matrix alone
+# (f32 from 100, f64 from 80; complex64 from 72, complex128 from 56:
+# chip_smoke.check_k13_plans); and where one block holds the matrix, the
+# fewest CTAs that beat it (2 CTAs trail one block at every order and
+# batch measured)
+CLUSTER_MIN_N = {F32: 100, F64: 80, C64: 72, C128: 56}
 CLUSTER_MIN_CTAS = 4
 
 
@@ -333,11 +335,11 @@ def _up16(x: int) -> int:
 
 def cluster_smem_bytes(n: int, dtype: torch.dtype, with_vectors: bool,
                        cluster: int) -> int:
-    """Dynamic shared memory of one CTA of K12's cluster variant at even
-    order n (csrc/jacobi_eigh.cu ClusterLayout), each part on 16 bytes:
+    """Dynamic shared memory of one CTA of the cluster variant at even
+    order n (csrc/jacobi_fused.cuh ClusterLayout), each part on 16 bytes:
     the rows of its at most P = ceil(n/2 / C) pairs twice (read one copy,
     write the other) and its at most S = ceil(n / C) rows of V, padded to
-    n + 1; the rotations of two rounds (2 max(n, 64) reals); a pointer
+    n + 1; the rotations of two rounds (2 max(n, 64) elements); a pointer
     per own row (2 P) and an int per own pair (P); 2 MAX_CLUSTER partial
     sums."""
     esize = torch.empty((), dtype=dtype).element_size()
@@ -361,8 +363,8 @@ def cluster_fits(n: int, dtype: torch.dtype, with_vectors: bool,
 
 def jacobi_plan(n: int, dtype: torch.dtype, with_vectors: bool, batch: int,
                 sms: int = NUM_SMS) -> tuple[str, int]:
-    """(variant, cluster size) of K12 for a batch of `batch` real matrices
-    of even order n.
+    """(variant, cluster size) of K12 or K13 for a batch of `batch`
+    matrices of even order n and the given dtype.
 
     * Where no cluster holds the matrix (order 2, where a second CTA
       would own no pair; beyond MAX_CLUSTER CTAs' capacity): one block
@@ -380,8 +382,7 @@ def jacobi_plan(n: int, dtype: torch.dtype, with_vectors: bool, batch: int,
     block = smem_bytes(n, dtype, with_vectors) <= SMEM_MAX
     if not fits:
         return ("block", 1) if block else ("device", 1)
-    esize = torch.empty((), dtype=dtype).element_size()
-    if block and n < CLUSTER_MIN_N[esize]:
+    if block and n < CLUSTER_MIN_N[dtype]:
         return "block", 1
     c = fits[0]
     while (c < MAX_CLUSTER and 2 * c * batch <= sms
@@ -400,7 +401,7 @@ def _jacobi_cuda(A: torch.Tensor, sweeps: int, with_vectors: bool,
                  lead: int = 0, plan: tuple[str, int] | None = None):
     """K12/K13 on the card: (w, V or None, sweeps run per group).  One
     launch per sweep; the early exit is a per-group flag on the card, so
-    the host never synchronises.  K12 runs `plan` (default jacobi_plan's
+    the host never synchronises.  Runs `plan` (default jacobi_plan's
     choice for this batch on this card); a variant the card refuses
     raises."""
     if A.dtype not in _KERNELS:
@@ -420,14 +421,7 @@ def _jacobi_cuda(A: torch.Tensor, sweeps: int, with_vectors: bool,
     nsw = torch.zeros_like(done)
     kernels.check_cuda(work, V)
     eps = eps_for(_real_dtype(A.dtype))
-    if batch and A.is_complex():
-        kernels.launch(src, fn, work.data_ptr(), V.data_ptr(),
-                       _schedule(n, A.device).data_ptr(), ratio.data_ptr(),
-                       done.data_ptr(), nsw.data_ptr(), batch, groups, n,
-                       sweeps, int(with_vectors), eps,
-                       int(smem_bytes(n, A.dtype, with_vectors) <= SMEM_MAX))
-        kernels.LAUNCHES[name] += 1
-    elif batch:
+    if batch:
         variant, cluster = plan or jacobi_plan(n, A.dtype, with_vectors,
                                                batch, _sm_count(A.device))
         # only the device-memory variant reads the table

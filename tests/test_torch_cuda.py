@@ -21,6 +21,7 @@ import scipy
 import scipy.sparse as sp
 import torch
 
+import dd_emulation as ddemu
 import sedumi_tpu_torch as st
 import tile_emulation as emu
 from chip_smoke import TILE_TOL, jacobi_compare, nt_like, random_sparse_lp
@@ -384,15 +385,57 @@ def test_jacobi_refused_plan_raises(cuda, plan):
     assert lax_eigh.VARIANT_LAUNCHES == before
 
 
+def fused_plans(n, dtype, vectors):
+    """Every fused plan that holds a matrix of even order n: one block
+    where its shared memory does, each cluster size that does."""
+    plans = [("block", 1)] if lax_eigh.smem_bytes(n, dtype, vectors) \
+        <= lax_eigh.SMEM_MAX else []
+    return plans + [("cluster", c) for c in lax_eigh.CLUSTER_SIZES
+                    if lax_eigh.cluster_fits(n, dtype, vectors, c)]
+
+
+def bits_or_nan(a, b) -> bool:
+    """NaN in the same places, every other entry bit for bit."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) \
+        and bits_equal(a[~nan], b[~nan])
+
+
+def same_result(got, want, vectors) -> bool:
+    """(w, V, sweeps) bit for bit, NaN where the other has NaN."""
+    return bits_or_nan(got[0], want[0]) \
+        and (not vectors or bits_or_nan(got[1], want[1])) \
+        and torch.equal(got[2], want[2])
+
+
+# both sides of every edge of K13's plan.  With vectors: one block up to
+# 84 in complex128 and 118 in complex64; 2, 4, 8 and 16 CTAs up to 96,
+# 136, 192 and 262 in complex128 and 136, 192, 272 and 384 in
+# complex64; device memory beyond.  Without: one block up to 118 and 168;
+# 16 CTAs up to 320 and 466.
+K13_ORDERS = [3, 8, 60, 84, 86, 96, 98, 118, 120, 136, 138, 168, 170, 192,
+              194, 262, 264, 272, 274, 320, 322, 384, 386]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
-@pytest.mark.parametrize("n", [3, 8, 60, 84, 86])
+@pytest.mark.parametrize("n", K13_ORDERS)
 def test_jacobi_herm_kernel(cuda, n, dtype):
-    """K13 against its plain version (complex128 with vectors: 84 in
-    shared memory, 86 in device memory)."""
+    """K13 against its plain version through the dispatch, with and
+    without vectors (jacobi_compare's tolerance), and in every fused plan
+    that holds the matrix (one block, 2-16 CTAs) bit for bit equal to the
+    device-memory variant in w, V and the sweeps run."""
     A = nt_like(2, n, dtype, torch.Generator().manual_seed(n)).to(cuda)
-    check_jacobi_case(
-        A, lax_eigh._sweeps_for(n, lax_eigh._real_dtype(dtype)), True)
+    m = n + n % 2
+    sweeps = lax_eigh._sweeps_for(n, lax_eigh._real_dtype(dtype))
+    for vectors in (True, False):
+        check_jacobi_case(A, sweeps if vectors else
+                          lax_eigh.coarse_sweeps_for(
+                              n, lax_eigh._real_dtype(dtype)), vectors)
+        want = lax_eigh._jacobi_cuda(A, sweeps, vectors, 0, ("device", 1))
+        for plan in fused_plans(m, dtype, vectors):
+            got = lax_eigh._jacobi_cuda(A, sweeps, vectors, 0, plan)
+            assert same_result(got, want, vectors), (plan, vectors)
 
 
 @pytest.mark.cuda
@@ -436,6 +479,19 @@ def test_jacobi_nan_and_multi_bucket(cuda):
         A.to(cuda), lax_eigh._sweeps_for(161, A.dtype), True, plan)
     assert int(got[2]) == 2 and int(want[2]) == 2
     assert bool(torch.isnan(got[0]).all())
+    # K13's cluster variant on a NaN matrix: two sweeps, NaN, and bit for
+    # bit its device-memory variant
+    for dt in (torch.complex128, torch.complex64):
+        A = nt_like(1, 121, dt, gen)
+        A[0, 2, 5] = float("nan")
+        A = A.to(cuda)
+        assert lax_eigh.jacobi_plan(122, dt, True, 1,
+                                    lax_eigh._sm_count(cuda)) == plan
+        sweeps = lax_eigh._sweeps_for(121, lax_eigh._real_dtype(dt))
+        got, _ = check_jacobi_case(A, sweeps, True)
+        assert int(got[2]) == 2 and bool(torch.isnan(got[0]).all())
+        assert same_result(got, lax_eigh._jacobi_cuda(
+            A, sweeps, True, 0, ("device", 1)), True)
 
 
 def arch0_launches(device, dtype):
@@ -512,9 +568,11 @@ def test_dd_elem_kernel(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [5, 48, 123, 666])
 def test_dd_gemv_kernel(cuda, m):
-    """K6 within 2 (n + 4)^2 u^2 sum_j |A_ij| |x_j| of the Ozaki route
-    (each route's error bound on Gaussian data; see chip_smoke.py
-    check_dd_gemv), on A, on a row panel and on a transposed panel."""
+    """K6 bit for bit equal to the emulation of its lane order
+    (tests/dd_emulation.py), and within 2 (n + 4)^2 u^2 sum_j |A_ij| |x_j|
+    of the Ozaki route (each route's error bound on Gaussian data; see
+    chip_smoke.py check_dd_gemv), on A, on a row panel and on a
+    transposed panel."""
     rng = np.random.default_rng(m)
     Ah = torch.as_tensor(rng.standard_normal((m, m)), device=cuda)
     Al = Ah * torch.as_tensor(2.0**-54 * rng.random((m, m)), device=cuda)
@@ -526,10 +584,68 @@ def test_dd_gemv_kernel(cuda, m):
                            (Ah[h:, :h], Al[h:, :h], xh[:h], xl[:h]),
                            (Ah[h:, :h].T, Al[h:, :h].T, xh[h:], xl[h:])]:
         kh, kl = ddlinalg.dd_gemv(A, Alo, x, xlo)
+        eh, el = ddemu.gemv(*(t.cpu().numpy() for t in (A, Alo, x, xlo)))
+        assert bits_equal(kh.cpu(), torch.as_tensor(eh))
+        assert bits_equal(kl.cpu(), torch.as_tensor(el))
         ph, pl = ddlinalg.dd_gemv_plain(A, Alo, x, xlo)
         n = A.shape[1]
         tol = 2.0 * (n + 4) ** 2 * u * u * (A.abs() @ x.abs())
         assert bool(torch.all(((kh - ph) + (kl - pl)).abs() <= tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [48, 100, 174, 666])
+def test_dd_chol_solve_kernel(cuda, m):
+    """The fused dd_chol_solve: one launch, and no K6 or K5 launch, per
+    solve; z bit for bit equal to the composition of K6 and K5 launches
+    (dd_chol_solve_panels) and to the emulation of their order
+    (tests/dd_emulation.py), with and without a low part of b, at cond
+    1e14."""
+    rng = np.random.default_rng(m)
+    q = np.linalg.qr(rng.standard_normal((m, m)))[0]
+    M = (q * np.logspace(0, -14, m)) @ q.T
+    f = ddlinalg.dd_chol(torch.as_tensor(0.5 * (M + M.T), device=cuda))
+    b = torch.as_tensor(rng.standard_normal(m), device=cuda)
+    inv = [(h.cpu().numpy(), l.cpu().numpy()) for h, l in f.inv_diag]
+    for bl in (None, b * torch.as_tensor(2.0**-54 * rng.random(m),
+                                         device=cuda)):
+        before = dict(kernels.LAUNCHES)
+        zh, zl = ddlinalg.dd_chol_solve(f, b, bl)
+        counts = {k: kernels.LAUNCHES[k] - before[k] for k in
+                  ("dd_chol_solve", "dd_gemv", "dd_accumulate")}
+        assert counts == {"dd_chol_solve": 1, "dd_gemv": 0,
+                          "dd_accumulate": 0}
+        ph, pl = ddlinalg.dd_chol_solve_panels(f, b, bl)
+        assert bits_equal(zh, ph) and bits_equal(zl, pl)
+        eh, el = ddemu.dd_chol_solve(
+            f.Lh.cpu().numpy(), f.Ll.cpu().numpy(), inv, f.nb,
+            b.cpu().numpy(), None if bl is None else bl.cpu().numpy())
+        assert bits_equal(zh.cpu(), torch.as_tensor(eh))
+        assert bits_equal(zl.cpu(), torch.as_tensor(el))
+
+
+@pytest.mark.cuda
+def test_dd_chol_solve_refuses_orders(cuda):
+    """The fused solve keeps the whole solution in each CTA's shared
+    memory: at nb = 48 it takes m = 5472 and refuses m = 5473 (raises,
+    launching nothing)."""
+    for m, fits in ((5472, True), (5473, False)):
+        L = torch.eye(m, dtype=torch.float64, device=cuda)
+        inv = torch.eye(48, dtype=torch.float64, device=cuda).repeat(
+            -(-m // 48), 1, 1)
+        f = ddlinalg.DdCholFactor(L, torch.zeros_like(L), inv,
+                                  torch.zeros_like(inv), 48,
+                                  torch.ones((), dtype=torch.bool))
+        b = torch.arange(m, dtype=torch.float64, device=cuda)
+        n0 = kernels.LAUNCHES["dd_chol_solve"]
+        if fits:
+            zh, zl = ddlinalg.dd_chol_solve(f, b)
+            assert bits_equal(zh, b) and not bool(zl.any())
+            assert kernels.LAUNCHES["dd_chol_solve"] == n0 + 1
+        else:
+            with pytest.raises(RuntimeError):
+                ddlinalg.dd_chol_solve(f, b)
+            assert kernels.LAUNCHES["dd_chol_solve"] == n0
 
 
 @pytest.mark.cuda
@@ -649,7 +765,9 @@ def solve_arch0(device):
 
 
 def use_plain_twins(mp):
-    """Put the seven kernels' plain twins where the path calls them."""
+    """Put the kernels' plain twins where the path calls them: K1-K7 and
+    the fused dd_chol_solve (its twin, dd_chol_solve_panels, then runs on
+    the plain dd_gemv and dd_sub)."""
     mp.setattr(pcg, "dd_matvec_residual", pcg.dd_matvec_residual_plain)
     mp.setattr(schur, "_psd_contrib_coo_kernel",
                schur._psd_contrib_coo_plain)
@@ -657,6 +775,7 @@ def use_plain_twins(mp):
     for name in ("ozaki_split", "dd_accumulate", "dd_add", "dd_sub",
                  "two_prod_cols", "dd_gemv", "dd_panel_chol"):
         mp.setattr(ddlinalg, name, getattr(ddlinalg, name + "_plain"))
+    mp.setattr(ddlinalg, "dd_chol_solve", ddlinalg.dd_chol_solve_panels)
 
 
 @pytest.mark.cuda
@@ -665,7 +784,7 @@ def test_arch0_witness(cuda, monkeypatch):
     the card's libraries, or the order of its sums).  Solves arch0 with
     the port on the CPU; on the card as the main path runs it, twice; with
     deterministic algorithms (ordered index_add_), twice; and with
-    deterministic algorithms and the plain twins in place of the seven
+    deterministic algorithms and the plain twins in place of the
     kernels.  Prints one JSON line with the library versions, each run's
     c'x, b'y, iterations, phases, rel, pinf, dinf, numerr, r0 and kernel
     launches, and which ops warned that they have no deterministic
@@ -710,7 +829,8 @@ def test_arch0_witness(cuda, monkeypatch):
         assert r["rel"] <= 1e-6 and r["numerr"] < 2
     assert runs["det_1"]["launches"]["psd_contrib_coo"] > 0
     assert all(runs["det_1"]["launches"][k] > 0 for k in (
-        "ozaki_split", "dd_accumulate", "dd_gemv", "dd_panel_chol"))
+        "ozaki_split", "dd_accumulate", "dd_gemv", "dd_chol_solve",
+        "dd_panel_chol"))
     assert sum(runs["det_plain"]["launches"].values()) == 0
     assert same("det_1", "det_2") and not nondet
 

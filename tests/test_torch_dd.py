@@ -11,6 +11,10 @@ twins on the card):
   exact, and at the long-double floor (the reference's own test);
 * dd_chol / dd_chol_solve at cond 1e14: the factor against the
   reference's, and the reference's accuracy claims on the port;
+* the dd GEMV kernel's lane order (tests/dd_emulation.py, which the card
+  tests hold K6 and the fused dd_chol_solve to bit for bit): each product
+  of a solve within the GEMV bound of the plain route, the solve against
+  the reference's;
 * DdSchurEngine.prepare/solve against the reference's engine (JAX through
   its pure_callback) from one scaling, dense and COO PSD buckets;
 * the dd64 phase breaking the f64 floor end to end, with the reference's
@@ -23,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import dd_emulation as ddemu
 from sedumi_tpu import ddengine as jddengine
 from sedumi_tpu import ddlinalg as jdd
 from sedumi_tpu import nt as jnt
@@ -245,6 +250,62 @@ def test_dd_chol_solve_ill_conditioned_on_the_port(rng):
     rel_f64 = np.linalg.norm(b - A @ xf) / np.linalg.norm(b)
     assert rel_dd < 1e-5
     assert rel_dd < rel_f64 / 100
+
+
+def exact_gemv_err(Ah, Al, xh, xl, yh, yl):
+    """|(Ah + Al)(xh + xl) - (yh + yl)| per row, the product exact (as
+    Fractions), the difference rounded once."""
+    from fractions import Fraction as Q
+    x = [Q(h) + Q(l) for h, l in zip(xh, xl)]
+    return np.array([
+        float(abs(sum((Q(h) + Q(l)) * xj for h, l, xj in zip(rh, rl, x))
+                  - Q(y) - Q(z)))
+        for rh, rl, y, z in zip(Ah, Al, yh, yl)])
+
+
+def test_dd_chol_solve_lane_order_emulation(rng):
+    """dd_chol_solve in K6's lane order (tests/dd_emulation.py) at m = 100
+    (panels of 48, 48 and a partial 4), cond 1e14, with a dd right-hand
+    side.  Each product of the solve (the forward and backward panel
+    products, both diagonal-inverse products) is within half the bound
+    of chip_smoke.check_dd_gemv, (n + 4)^2 u^2 sum_j |A_ij| |x_j|, of the
+    exact product.  (The plain route, the Ozaki dd_gemm, is not: its
+    slices are scaled by the largest |x_j|, and this solve's x spans
+    many binades, so its error on the last forward panel is ~100x that
+    bound.)  The solve lands within 1e-18 of max|z| of the plain route's
+    on the same factor (two dd solves whose products differ below 1e-23
+    relative, at cond(L) ~ 1e7), and within 1e-12 of the reference's
+    (test_dd_chol_matches_reference's tolerance: the two factors differ
+    at eps^2)."""
+    m = 100
+    A = ill_conditioned(rng, m)
+    f = tdd.dd_chol(T(A))
+    assert bool(f.ok)
+    b = rng.normal(size=m)
+    bl = b * 2.0**-54 * rng.random(m)
+    ratios = []
+
+    def gemv(Ah, Al, xh, xl):
+        yh, yl = ddemu.gemv(Ah, Al, xh, xl)
+        n = Ah.shape[1]
+        tol = (n + 4) ** 2 * U * U * (np.abs(Ah) @ np.abs(xh))
+        err = exact_gemv_err(Ah, Al, xh, xl, yh, yl)
+        ratios.append(float(np.max(err / tol)))
+        return yh, yl
+
+    inv = [(N(h), N(l)) for h, l in f.inv_diag]
+    assert [ih.shape[0] for ih, _ in inv] == [48, 48, 4]
+    zh, zl = ddemu.dd_chol_solve(N(f.Lh), N(f.Ll), inv, f.nb, b, bl,
+                                 gemv=gemv)
+    # 3 diagonal products and 2 panel products each way
+    assert len(ratios) == 10 and max(ratios) <= 1.0, ratios
+    ph, pl = (N(t) for t in tdd.dd_chol_solve(f, T(b), T(bl)))
+    dz = (np.asarray(zh, np.longdouble) + zl) \
+        - (np.asarray(ph, np.longdouble) + pl)
+    assert float(np.abs(dz).max()) <= 1e-18 * np.abs(ph).max()
+    f_j = jdd.dd_chol(A)
+    xh_j, _ = jdd.dd_chol_solve(f_j, b, bl)
+    assert np.abs(zh - xh_j).max() <= 1e-12 * np.abs(xh_j).max()
 
 
 def test_dd_chol_pivot_rule_matches_reference():

@@ -91,39 +91,114 @@ def test_closed_form_schedule_matches_table():
                                       tle._round_robin_schedule(n))
 
 
-# ------------------------------------- K12's fused step, emulated
+# ------------------------------------- the fused step, emulated
+#
+# Elements carry a trailing component axis: [..., 1] for a real matrix,
+# [..., 2] (re, im) for a Hermitian one.  RealOps and HermOps hold the
+# kernels' element arithmetic (csrc/jacobi_eigh.cu RealTraits,
+# csrc/jacobi_herm.cu HermTraits): the complex products written as the
+# kernel writes them, (ac - bd, ad + bc) with each real product and sum
+# rounded on its own.
 
 
-def fused_block_round(A, V, p, q, c, s):
-    """One round as K12's block variant computes it: each 2 x 2 block
+class RealOps:
+    @staticmethod
+    def rotation(app, aqq, apq, ueps):
+        _, c, s = tle._angle(app[..., 0], aqq[..., 0], apq[..., 0], ueps)
+        return c[..., None], s[..., None]
+
+    @staticmethod
+    def row(c, s, xp, xq):
+        return c * xp - s * xq, s * xp + c * xq
+
+    col = row
+
+
+def cmul(a, b):
+    a0, a1, b0, b1 = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
+    return torch.stack([a0 * b0 - a1 * b1, a0 * b1 + a1 * b0], -1)
+
+
+def conj(a):
+    return torch.stack([a[..., 0], -a[..., 1]], -1)
+
+
+class HermOps:
+    """HermTraits: the real angle of (re a_pp, re a_qq, hypot(a_pq)), the
+    phase u = a_pq / |a_pq| (1 if small) folded into s u; rows p, q <- c
+    A_p - su A_q, conj(su) A_p + c A_q; columns p, q <- c A_p - conj(su)
+    A_q, su A_p + c A_q; c enters as the element (c, 0)."""
+
+    @staticmethod
+    def rotation(app, aqq, apq, ueps):
+        mag = torch.hypot(apq[..., 0], apq[..., 1])
+        small, c, s = tle._angle(app[..., 0], aqq[..., 0], mag, ueps)
+        m1 = mag.masked_fill(small, 1.0)
+        u = torch.stack([torch.where(small, 1.0, apq[..., 0] / m1),
+                         torch.where(small, 0.0, apq[..., 1] / m1)], -1)
+        zero = torch.zeros_like(c)
+        return (torch.stack([c, zero], -1),
+                cmul(torch.stack([s, zero], -1), u))
+
+    @staticmethod
+    def row(c, su, xp, xq):
+        return (cmul(c, xp) - cmul(su, xq),
+                cmul(conj(su), xp) + cmul(c, xq))
+
+    @staticmethod
+    def col(c, su, xp, xq):
+        return (cmul(c, xp) - cmul(conj(su), xq),
+                cmul(su, xp) + cmul(c, xq))
+
+
+def round_rotations(A, p, q, ops, ueps):
+    return ops.rotation(A[..., p, p, :], A[..., q, q, :], A[..., p, q, :],
+                        ueps)
+
+
+def three_step_round(A, V, p, q, c, s, ops):
+    """One round as the plain version and the device-memory kernel run it:
+    rows p, q of A by each pair's rotation, then columns p, q of A and
+    V."""
+    ck, sk = c[..., :, None, :], s[..., :, None, :]
+    A[..., p, :, :], A[..., q, :, :] = ops.row(ck, sk, A[..., p, :, :],
+                                               A[..., q, :, :])
+    cl, sl = c[..., None, :, :], s[..., None, :, :]
+    for M in (A, V):
+        M[..., :, p, :], M[..., :, q, :] = ops.col(cl, sl, M[..., :, p, :],
+                                                   M[..., :, q, :])
+
+
+def fused_block_round(A, V, p, q, c, s, ops):
+    """One round as the block variant computes it: each 2 x 2 block
     {p_k, q_k} x {p_l, q_l} of A rotated by rotation k over its rows, then
     by rotation l over its columns; each row of V by the column
     rotations."""
     P, Q, Pl, Ql = p[:, None], q[:, None], p[None, :], q[None, :]
-    ck, sk = c[..., :, None], s[..., :, None]
-    cl, sl = c[..., None, :], s[..., None, :]
-    app, apq = A[..., P, Pl], A[..., P, Ql]
-    aqp, aqq = A[..., Q, Pl], A[..., Q, Ql]
-    rpp, rqp = ck * app - sk * aqp, sk * app + ck * aqp
-    rpq, rqq = ck * apq - sk * aqq, sk * apq + ck * aqq
-    A[..., P, Pl], A[..., P, Ql] = cl * rpp - sl * rpq, sl * rpp + cl * rpq
-    A[..., Q, Pl], A[..., Q, Ql] = cl * rqp - sl * rqq, sl * rqp + cl * rqq
-    vp, vq = V[..., :, p], V[..., :, q]
-    V[..., :, p], V[..., :, q] = cl * vp - sl * vq, sl * vp + cl * vq
+    ck, sk = c[..., :, None, :], s[..., :, None, :]
+    cl, sl = c[..., None, :, :], s[..., None, :, :]
+    app, apq = A[..., P, Pl, :], A[..., P, Ql, :]
+    aqp, aqq = A[..., Q, Pl, :], A[..., Q, Ql, :]
+    rpp, rqp = ops.row(ck, sk, app, aqp)
+    rpq, rqq = ops.row(ck, sk, apq, aqq)
+    A[..., P, Pl, :], A[..., P, Ql, :] = ops.col(cl, sl, rpp, rpq)
+    A[..., Q, Pl, :], A[..., Q, Ql, :] = ops.col(cl, sl, rqp, rqq)
+    V[..., :, p, :], V[..., :, q, :] = ops.col(cl, sl, V[..., :, p, :],
+                                               V[..., :, q, :])
 
 
-def colrot(R, pairs, c, s):
+def colrot(R, pairs, c, s, ops):
     """R's columns rotated by one round's column rotations (pairs [h, 2],
-    c, s [h]), as the plain version's column step computes them."""
+    c, s [h, comps])."""
     out = R.clone()
     p, q = pairs[:, 0], pairs[:, 1]
-    rp, rq = R[..., p], R[..., q]
-    out[..., p], out[..., q] = c * rp - s * rq, s * rp + c * rq
+    out[..., p, :], out[..., q, :] = ops.col(c, s, R[..., p, :],
+                                             R[..., q, :])
     return out
 
 
-def cluster_sweep(A, V, C, ueps):
-    """One sweep as K12's cluster variant computes it on a matrix A (and
+def cluster_sweep(A, V, C, ueps, ops):
+    """One sweep as the cluster variant computes it on a matrix A (and
     its V) over C CTAs: CTA c holds the rows of the round's pairs
     [c h / C, (c+1) h / C) at positions 2 (k - c h / C) + side (side 0:
     slot k, side 1: slot n-1-k), and stores A' = the round's rows rotated
@@ -134,7 +209,7 @@ def cluster_sweep(A, V, C, ueps):
     round and row-rotated by this one, written to the position (in
     whichever CTA) of its pair next round.  Returns A and V after the
     sweep."""
-    n = A.shape[-1]
+    n = A.shape[-2]
     h, m = n // 2, n - 1
     assert C <= h
     k = np.arange(h)
@@ -155,7 +230,7 @@ def cluster_sweep(A, V, C, ueps):
 
     # the two rows of pair k, as (CTA, position) index tensors
     ka, kb = place(0, player(0, k)), place(0, player(0, n - 1 - k))
-    bufs = torch.zeros(C, 2 * -(-h // C), n, dtype=A.dtype)
+    bufs = torch.zeros((C, 2 * -(-h // C)) + A.shape[-2:], dtype=A.dtype)
     bufs[ka] = A[player(0, k)]
     bufs[kb] = A[player(0, n - 1 - k)]
     V = V.clone()
@@ -164,63 +239,86 @@ def cluster_sweep(A, V, C, ueps):
         a, b = player(r, k), player(r, n - 1 - k)
         ra, rb = bufs[place(r, a)], bufs[place(r, b)]
         if prev is not None:
-            ra, rb = colrot(ra, *prev), colrot(rb, *prev)
-        isp = torch.as_tensor(a < b)[:, None]
+            ra, rb = colrot(ra, *prev, ops), colrot(rb, *prev, ops)
+        isp = torch.as_tensor(a < b)[:, None, None]
         rp, rq = torch.where(isp, ra, rb), torch.where(isp, rb, ra)
         p = torch.as_tensor(np.minimum(a, b))
         q = torch.as_tensor(np.maximum(a, b))
         kt = torch.as_tensor(k)
-        _, c_r, s_r = tle._angle(rp[kt, p], rq[kt, q], rp[kt, q], ueps)
-        cb, sb = c_r[:, None], s_r[:, None]
+        c_r, s_r = ops.rotation(rp[kt, p], rq[kt, q], rp[kt, q], ueps)
         nxt = torch.zeros_like(bufs)
-        nxt[place(r + 1, p.numpy())] = cb * rp - sb * rq
-        nxt[place(r + 1, q.numpy())] = sb * rp + cb * rq
+        nxt[place(r + 1, p.numpy())], nxt[place(r + 1, q.numpy())] = \
+            ops.row(c_r[:, None], s_r[:, None], rp, rq)
         if prev is not None:
-            V = colrot(V, *prev)
+            V = colrot(V, *prev, ops)
         bufs = nxt
         prev = (torch.stack([p, q], -1), c_r, s_r)
     out = torch.empty_like(A)
-    out[player(0, k)] = colrot(bufs[ka], *prev)
-    out[player(0, n - 1 - k)] = colrot(bufs[kb], *prev)
-    return out, colrot(V, *prev)
+    out[player(0, k)] = colrot(bufs[ka], *prev, ops)
+    out[player(0, n - 1 - k)] = colrot(bufs[kb], *prev, ops)
+    return out, colrot(V, *prev, ops)
+
+
+FUSED_CASES = {"odd17": (17, 2, 17), "n60": (60, 2, 60),
+               "n162": (162, 1, 162), "nan": (12, 3, 12)}
+# order 162 is K12's: the complex cases stop at K13's 60
+FUSED_DTYPES = [(case, dt) for case in FUSED_CASES
+                for dt in (np.float32, np.float64, np.complex64,
+                           np.complex128)
+                if case != "n162" or np.dtype(dt).kind == "f"]
 
 
 @pytest.mark.parametrize("kernel", ["block", "cluster"])
-@pytest.mark.parametrize("dt", [np.float32, np.float64])
-@pytest.mark.parametrize("case", ["odd17", "n162", "nan"])
+@pytest.mark.parametrize("case,dt", FUSED_DTYPES)
 def test_fused_step_is_the_plain_round_bit_for_bit(case, dt, kernel):
-    """K12's fused 2 x 2-block step (block variant) and its
-    pairs-per-CTA form with the column rotations one round late (cluster
-    variant, with its storage and row moves between CTAs), emulated round
-    by round in torch ops with the closed-form pairs, against
-    _jacobi_plain's row-then-column rounds: after a sweep, all of A and V
-    bit for bit (NaN where the plain version has NaN), at a padded odd
-    order, at order 162 and on a batch with a NaN."""
-    rng = np.random.default_rng({"odd17": 17, "n162": 162, "nan": 12}[case])
-    k, n0 = {"odd17": (2, 17), "n162": (1, 162), "nan": (3, 12)}[case]
-    A = sym(rng, k, n0).astype(dt)
+    """The fused 2 x 2-block step (block variant) and its pairs-per-CTA
+    form with the column rotations one round late (cluster variant, with
+    its storage and row moves between CTAs), emulated round by round in
+    torch ops with the closed-form pairs, against the three-step round
+    (all rows, then all columns) written with the same element arithmetic:
+    after a sweep, all of A and V bit for bit (NaN where the three-step
+    round has NaN), at a padded odd order, at K13's order 60, at order
+    162 and on a batch with a NaN.  For a real dtype the three-step round
+    is also _sweep_loop's, bit for bit (K12); for a complex dtype the
+    complex products are the kernel's (each real product and sum rounded
+    on its own, not torch's complex multiply), as K13's device-memory
+    sweep computes them."""
+    seed, k, n0 = FUSED_CASES[case]
+    rng = np.random.default_rng(seed)
+    A = sym_or_herm(rng, k, n0, dt)
     if case == "nan":
         A[1, 2, 5] = A[1, 5, 2] = np.nan
     AV = tle._start(torch.as_tensor(A), True)
     n = AV.shape[-1]
+    herm = np.dtype(dt).kind == "c"
+    ops = HermOps if herm else RealOps
     ueps = float(np.finfo(dt).eps)
-    want = AV.clone()
-    tle._sweep_loop(want, n, 1, 0, ueps, tle._real_rotations(ueps))
-    Ak, Vk = AV[..., :n, :].clone(), AV[..., n:, :].clone()
+    parts = torch.view_as_real(AV) if herm else AV[..., None]
+    want = parts.clone()
+    sched = torch.as_tensor(tle.closed_form_schedule(n), dtype=torch.long)
+    for r in range(n - 1):
+        p, q = sched[r, :, 0], sched[r, :, 1]
+        Aw, Vw = want[..., :n, :, :], want[..., n:, :, :]
+        c, s = round_rotations(Aw, p, q, ops, ueps)
+        three_step_round(Aw, Vw, p, q, c, s, ops)
+    if not herm:
+        plain = AV.clone()
+        tle._sweep_loop(plain, n, 1, 0, ueps, tle._real_rotations(ueps))
+        nan = torch.isnan(plain)
+        assert torch.equal(torch.isnan(want[..., 0]), nan)
+        assert torch.equal(want[..., 0][~nan], plain[~nan])
+    Ak, Vk = parts[..., :n, :, :].clone(), parts[..., n:, :, :].clone()
     if kernel == "block":
-        sched = torch.as_tensor(tle.closed_form_schedule(n),
-                                dtype=torch.long)
         for r in range(n - 1):
             p, q = sched[r, :, 0], sched[r, :, 1]
-            d = torch.diagonal(Ak, dim1=-2, dim2=-1)
-            _, c, s = tle._angle(d[..., p], d[..., q], Ak[..., p, q], ueps)
-            fused_block_round(Ak, Vk, p, q, c, s)
+            c, s = round_rotations(Ak, p, q, ops, ueps)
+            fused_block_round(Ak, Vk, p, q, c, s, ops)
     else:
-        # the cluster sizes K12 takes at these orders: 2 and 8 CTAs
+        # the cluster sizes the plan takes at these orders: 2 and 8 CTAs
         C = 2 if n < 64 else 8
         for i in range(Ak.shape[0]):
-            Ak[i], Vk[i] = cluster_sweep(Ak[i], Vk[i], C, ueps)
-    got = torch.cat([Ak, Vk], dim=-2)
+            Ak[i], Vk[i] = cluster_sweep(Ak[i], Vk[i], C, ueps, ops)
+    got = torch.cat([Ak, Vk], dim=-3)
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
     assert bool(nan.any()) == (case == "nan")
@@ -228,19 +326,25 @@ def test_fused_step_is_the_plain_round_bit_for_bit(case, dt, kernel):
 
 
 def test_jacobi_plan_edges():
-    """K12's plan at each edge: one block's shared memory (f32 with
-    vectors up to 168, f64 up to 118), each cluster size's capacity at a
-    batch that fills the card (the fewest CTAs that hold the matrix), the
-    largest cluster's capacity (then device memory), and the spreading of
-    a small batch over more CTAs."""
+    """The plan at each edge: one block's shared memory (with vectors: f32
+    up to 168, f64 and complex64 up to 118, complex128 up to 84), each
+    cluster size's capacity at a batch that fills the card (the fewest
+    CTAs that hold the matrix), the largest cluster's capacity (then
+    device memory), the per-dtype block/cluster crossover and the
+    spreading of a small batch over more CTAs."""
     f32, f64 = torch.float32, torch.float64
+    c64, c128 = torch.complex64, torch.complex128
     big = tle.NUM_SMS  # a batch that leaves no SM idle
     plan = tle.jacobi_plan
     for dt, vec, block, caps in (
             (f32, True, 168, {2: 194, 4: 272, 8: 384, 16: 544}),
             (f64, True, 118, {2: 136, 4: 192, 8: 272, 16: 384}),
             (f32, False, 238, {4: 336, 8: 472, 16: 672}),
-            (f64, False, 168, {4: 236, 8: 334, 16: 466})):
+            (f64, False, 168, {4: 236, 8: 334, 16: 466}),
+            (c64, True, 118, {2: 136, 4: 192, 8: 272, 16: 384}),
+            (c64, False, 168, {4: 236, 8: 334, 16: 466}),
+            (c128, True, 84, {2: 96, 4: 136, 8: 192, 16: 262}),
+            (c128, False, 118, {4: 166, 8: 232, 16: 320})):
         assert tle.smem_bytes(block, dt, vec) <= tle.SMEM_MAX \
             < tle.smem_bytes(block + 2, dt, vec)
         assert plan(block, dt, vec, big) == ("block", 1)
@@ -257,15 +361,20 @@ def test_jacobi_plan_edges():
     assert not tle.cluster_fits(30, f32, True, 16)
     assert tle.cluster_fits(32, f32, True, 16)
     # a batch of one NT bucket spreads over MAX_CLUSTER CTAs; below
-    # CLUSTER_MIN_N (by element size) one block, with or without vectors
-    for n, dt in ((162, f32), (322, f32), (162, f64), (322, f64)):
+    # CLUSTER_MIN_N (by dtype) one block, with or without vectors
+    for n, dt in ((162, f32), (322, f32), (162, f64), (322, f64),
+                  (120, c128), (200, c128), (120, c64)):
         assert plan(n, dt, True, 1) == ("cluster", tle.MAX_CLUSTER)
-    for dt in (f32, f64):
-        n = tle.CLUSTER_MIN_N[torch.empty((), dtype=dt).element_size()]
+    assert tle.CLUSTER_MIN_N == {f32: 100, f64: 80, c64: 72, c128: 56}
+    for dt in (f32, f64, c64, c128):
+        n = tle.CLUSTER_MIN_N[dt]
         for vec in (True, False):
             assert plan(n - 2, dt, vec, 1) == ("block", 1)
             assert plan(n, dt, vec, 1) == ("cluster", tle.MAX_CLUSTER)
-    assert tle.CLUSTER_MIN_N == {4: 100, 8: 80}
+    # K13's timed case: 2 x 60 takes 16 CTAs in complex128, one block in
+    # complex64
+    assert plan(60, c128, True, 2) == ("cluster", tle.MAX_CLUSTER)
+    assert plan(60, c64, True, 2) == ("block", 1)
     assert plan(2, f32, True, 1) == ("block", 1)
     # the batch caps the spread (batch x C <= SMs); one block where it
     # holds the matrix and the cluster would have fewer than
