@@ -17,7 +17,9 @@
    the plain version's, and bit for bit its device-memory variant in w,
    V and sweeps, in each variant; the K6 solve bit for bit the
    composition of K6 and K5 launches and its emulation, and within
-   1e-18 of max|z| of the plain twins' solve), and the
+   1e-18 of max|z| of the plain twins' solve; K7 at cond 1e14, with a
+   non-positive and with a NaN pivot and at nr == w, timed on the first
+   and the last panel of m = 666 with its chain of column steps), and the
    Schur-panel kernels of the mesh path, K14 (a block column of the
    distributed Cholesky) and K15 (the distributed substitution's three
    steps), at OH's and nb's panel shapes within 1e-12 of max|L| and of
@@ -72,8 +74,9 @@
    lp20k and the 'float32' solve are gated as in 4.
    Then K8-K10 and K2's group layout are held against their plain twins
    on the plans the f64 solves built (LP 20k, SDP 5k, SDP 1200), and
-   K8-f32 to K10-f32 on f32 storage of the same plans; K10 must take two
-   launches a solve and repeat bit for bit, and is timed on each plan.
+   K8-f32 to K10-f32 on f32 storage of the same plans; K9 and K10 must
+   repeat bit for bit, K10 take two launches a solve, and K10 is timed on
+   each plan; K9's work at each plan's widest level is printed.
 6. Mesh path (pars.mesh_shape, MESH_SOLVES): OH at full size with
    {"panels": 2} on two ranks and nb with {"hosts": 2, "panels": 2} on
    four, all sharing this card under gloo (parallel.launch.run_spmd).
@@ -590,10 +593,24 @@ def spd_with_cond(m: int, cond: float, gen) -> torch.Tensor:
     return 0.5 * (M + M.T)
 
 
+def bits_or_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """NaN in the same places, every other entry bit for bit."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) \
+        and bit_diff(a[~nan], b[~nan])[0]
+
+
 def check_dd_panel_chol(dev, gen):
-    """K7 inside dd_chol on a 666 x 666 matrix of cond 1e14 (14 panels)
-    and on one with a forced non-positive pivot, against dd_chol with the
-    plain panel: L, the panel inverses and ok bit for bit."""
+    """K7 inside dd_chol against dd_chol with the plain panel, L, the
+    panel inverses and ok bit for bit (NaN where the plain version has
+    NaN): 666 x 666 at cond 1e14 (14 panels, the last 42 wide), with a
+    forced non-positive pivot, with a NaN pivot, and 48 x 48 (one panel,
+    nr == w).  Times the first panel (666 x 48) and the last (42 x 42),
+    events and graph replays.  Bound: bytes, the panel's S and L (h, l)
+    and the inverse once; beside it the chain: 2w dependent column steps
+    (w of the factor, w of the inverse, which K7 runs a step behind the
+    factor), and one factor step's cost, the last panel's graph time over
+    its w."""
     from sedumi_tpu_torch import ddlinalg as dd
     from sedumi_tpu_torch import kernels
 
@@ -602,13 +619,18 @@ def check_dd_panel_chol(dev, gen):
     B = torch.randn(m, m, generator=gen, dtype=torch.float64)
     A2 = (B @ B.T / m + torch.eye(m, dtype=torch.float64)).to(dev)
     A2[300, 300] = -5.0                    # pivot 300 goes negative
+    A3 = A2.clone()
+    A3[300, 300] = float("nan")            # pivot 300 is NaN
+    A4 = spd_with_cond(48, 1e14, gen).to(dev)
     worst = 0.0
     for label, A, want_ok in (("cond 1e14", A1, True),
-                              ("non-positive pivot", A2, False)):
+                              ("non-positive pivot", A2, False),
+                              ("NaN pivot", A3, False),
+                              ("48 x 48, nr == w", A4, True)):
         n0 = kernels.LAUNCHES["dd_panel_chol"]
         fk = dd.dd_chol(A)
         torch.cuda.synchronize()
-        if kernels.LAUNCHES["dd_panel_chol"] != n0 + 14:
+        if kernels.LAUNCHES["dd_panel_chol"] != n0 + -(-A.shape[0] // 48):
             fail("dd_chol did not launch the panel kernel per panel")
         kernel_panel = dd.dd_panel_chol
         dd.dd_panel_chol = dd.dd_panel_chol_plain
@@ -621,29 +643,43 @@ def check_dd_panel_chol(dev, gen):
             for a, b in zip(pk, pp)]
         for a, b in pairs:
             same, err = bit_diff(a, b)
+            if label == "NaN pivot":
+                same, err = bits_or_nan(a, b), 0.0
             worst = max(worst, err)
             if not same:
                 fail(f"dd_panel_chol kernel differs from its plain version "
                      f"({label}, max err {err:.3e})")
         if bool(fk.ok) != want_ok or bool(fp_.ok) != want_ok:
             fail(f"dd_chol ok flag wrong on the {label} matrix")
-    print("K7 dd_panel_chol: dd_chol of 666x666 at cond 1e14 and with a "
-          "forced non-positive pivot: bit for bit, ok flags right",
-          flush=True)
-    Sh = A1[:, :48].contiguous()
-    Sl = torch.zeros_like(Sh)
-    ms = cuda_ms(lambda: dd.dd_panel_chol(Sh, Sl), 50)
-    plain = cuda_ms(lambda: dd.dd_panel_chol_plain(Sh, Sl), 3, warmup=1)
+    print("K7 dd_panel_chol: dd_chol of 666x666 at cond 1e14, with a "
+          "forced non-positive pivot and with a NaN pivot, and of 48x48: "
+          "bit for bit, ok flags right", flush=True)
     w = 48
+    Sh = A1[:, :w].contiguous()
+    Sl = torch.zeros_like(Sh)
+    wl = m - 13 * w                         # the last panel, 42 x 42
+    Th = A1[m - wl:, m - wl:].contiguous()
+    Tl = torch.zeros_like(Th)
+    ms = cuda_ms(lambda: dd.dd_panel_chol(Sh, Sl), 50)
+    gms = graph_ms(lambda: dd.dd_panel_chol(Sh, Sl))
+    last = cuda_ms(lambda: dd.dd_panel_chol(Th, Tl), 50)
+    last_g = graph_ms(lambda: dd.dd_panel_chol(Th, Tl))
+    plain = cuda_ms(lambda: dd.dd_panel_chol_plain(Sh, Sl), 3, warmup=1)
     # dd updates: rows r > j of column j, columns j < c < w; the inverse's
     # (w - j - 1) w; ~25 flops each (TwoProd, 3 adds, dd_sub)
     upd = sum((m - j - 1) * (w - j - 1) + (w - j - 1) * w for j in range(w))
     b_ms, b_by = bound_ms(16.0 * (2 * m * w + w * w), 25.0 * upd)
+    line = dict(first_panel=[m, w], ms=ms, graph_ms=gms,
+                last_panel=[wl, wl], last_ms=last, last_graph_ms=last_g,
+                chain=2 * w, step_us=1e3 * last_g / wl, bound_ms=b_ms)
+    print("K7 panel " + json.dumps(line), flush=True)
     return dict(name="dd_panel_chol", route="cuda",
                 source="sedumi_tpu_torch/csrc/dd_chol.cu",
                 replaces="sedumi_tpu/ddlinalg.py:166",
                 max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None, graph_ms=gms,
+                last_panel_ms=last, last_panel_graph_ms=last_g,
+                chain=2 * w, step_us=line["step_us"])
 
 
 # --------------------------------------------------------------------------
@@ -1739,12 +1775,16 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
                 0, didx, torch.abs(st[lv["pair_a"]])
                 @ torch.abs(st[lv["pair_b"]]).mT)
             c = 2.0 * (B + float(torch.diff(ptr).max()) + 1.0)
-            ref = st.clone()
+            ref, again = st.clone(), st.clone()
             n0 = kernels.LAUNCHES[n9]
             sc.tile_update(st, lv)
             torch.cuda.synchronize()
             if kernels.LAUNCHES[n9] != n0 + 1:
                 fail(f"{n9} did not launch its kernel")
+            sc.tile_update(again, lv)
+            if not bit_diff(st, again)[0]:
+                fail(f"{n9}: two calls on the same storage differ on "
+                     f"{label} level {i}")
             sc.tile_update_plain(ref, lv)
             diff = torch.abs(st[dst] - ref[dst])
             lim = c * (eps * bound + tiny)
@@ -1769,9 +1809,12 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
         print(f"K8-K10{sfx} {label}: ntc={aop.meta['ntc']} "
               f"levels={len(levels)} widest={levels[wide]['cols'].numel()} "
               f"cols, rungs {n_rung}, worst K8 err/max|L|={rel8:.3e}, worst "
-              f"K9 err/bound={ratio9:.3e}, K10 max err {err:.3e} (max|x| "
+              f"K9 err/bound={ratio9:.3e} (two calls bit for bit at every "
+              f"level), K10 max err {err:.3e} (max|x| "
               f"{float(xp.abs().max()):.3e}), two calls bit for bit {same}",
               flush=True)
+        print(f"K9{sfx} {label} levels " + json.dumps(
+            update_level_stats(levels, wide)), flush=True)
         if not err <= tol["solve"] * float(torch.abs(xp).max()):
             fail(f"{n10} kernel disagrees with its plain version on "
                  f"{label}")
@@ -1842,7 +1885,8 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
                 max_abs_err=worst[n9],
                 ms=cuda_ms(lambda: sc.tile_update(work9, lv), 20),
                 plain_ms=cuda_ms(lambda: sc.tile_update_plain(work9, lv), 5),
-                bound_ms=b9[0], bound_by=b9[1], library_ms=None)
+                bound_ms=b9[0], bound_by=b9[1], library_ms=None,
+                graph_ms=graph_ms(lambda: sc.tile_update(work9, lv)))
     dsl = torch.cat([v["dslot"] for v in levels])
     Ld, yd = L[dsl], rhs.reshape(-1, B, 1)[:dsl.numel()].clone()
     t10 = solves["lp20k"]
@@ -1862,6 +1906,23 @@ def check_tile_kernels(plans, dev, gen, rng, reg=0.0, canceltol=1e-12,
                             "library_ms": row8["library_ms"]},
         "k10_solve": solves}}), flush=True)
     return [row8, row9, row10]
+
+
+def update_level_stats(levels, wide) -> dict:
+    """K9's work at a plan's widest level (destinations, pairs, the most
+    pairs of one destination, chunks of the work list, split
+    destinations) and over all levels (pairs, the most of one level)."""
+    lv = levels[wide]
+    cnt = torch.diff(lv["pair_ptr"])
+    return {"widest": {
+        "level": wide, "destinations": lv["pair_dst"].numel(),
+        "pairs": lv["pair_a"].numel(),
+        "max_pairs_per_destination": int(cnt.max()) if cnt.numel() else 0,
+        "chunks": lv["chunk_dst"].numel(),
+        "split_destinations": int((lv["dst_part"] >= 0).sum())},
+        "levels": len(levels),
+        "pairs": sum(v["pair_a"].numel() for v in levels),
+        "max_level_pairs": max(v["pair_a"].numel() for v in levels)}
 
 
 def k10_timing(sc, L, rhs, levels, B, f32) -> dict:

@@ -14,20 +14,25 @@ to back between CUDA events and, where the call can be captured, as the
 replay of a CUDA graph (chip_smoke.graph_ms), and reports each build's
 mean and runs.  The cases (all by default):
 
-* tiles: K8 and K10 on the plans of chip_smoke.py's sparse solves
+* tiles: K8, K9 and K10 on the plans of chip_smoke.py's sparse solves
   (--plans; the tile storage A H A' at a random interior point,
-  chip_smoke.tile_case) in f64 and f32: the whole tile solve (K10), the
-  builds' solutions' largest difference, and at lp20k's widest level K8's
-  diagonal and off launches apart, the builds bit for bit equal;
+  chip_smoke.tile_case) in f64 and f32: K9 at each plan's widest level
+  (with its level statistics) and its graph-replay time summed over all
+  levels of one factor, each level from the same storage for both builds
+  and the builds within K9's bound of each other; the whole tile solve
+  (K10), the builds' solutions' largest difference; and at lp20k's
+  widest level K8's diagonal and off launches apart, the builds bit for
+  bit equal;
 * panels: K14 and K15 at the mesh path's panel shapes
   (chip_smoke.panel_case: OH's bs 128, mp 1024 and nb's bs 32, mp 128):
   K14 on column 0 and over the columns of one factor, K15's forward
   step, backward contribution and back solve, the builds within
   chip_smoke.PANEL_TOL and this build bit for bit its emulation;
-* dd: each build's dd_chol_solve on its own dd_chol factor of one matrix
-  of cond 1e14 at control07's m = 666 and arch0's m = 174, and K6 on
-  control07's m x m refinement product, the builds' factors, solutions
-  and products bit for bit equal;
+* dd: on one matrix of cond 1e14 at control07's m = 666 and arch0's
+  m = 174, K7 on the first panel (m x 48), a whole dd_chol, and each
+  build's dd_chol_solve on its own factor, and K6 on control07's m x m
+  refinement product, the builds' panels, factors, solutions and
+  products bit for bit equal;
 * k13: K13 with vectors at 2 x 60 in complex128 and complex64 and at one
   matrix of order 120 and 200 in complex128, beside torch.linalg.eigh,
   the builds' eigenvalues within 4 n eps ||A|| of each other;
@@ -147,6 +152,53 @@ def diag_off_ms(kern, st, lv, reg, canceltol, sfx):
     return cuda_ms(diag, 20) - copy, cuda_ms(off, 20) - copy, work.clone()
 
 
+def k9_levels(osc, sc, st, levels, sfx) -> dict:
+    """Factor `st` in place level by level (this build's K8 and K9); before
+    each level's update, time both builds' K9 from copies of the same
+    storage in graph replays (in turns), and hold them within K9's bound
+    of each other (chip_smoke.check_tile_kernels' bound).  Returns the
+    widest level's times (events and graph replays), the summed graph
+    times over the levels and the level statistics."""
+    import chip_smoke as cs
+
+    B = st.shape[-1]
+    eps = float(torch.finfo(st.dtype).eps)
+    tiny = float(torch.finfo(st.dtype).tiny) if sfx else 0.0
+    wide = max(range(len(levels)),
+               key=lambda i: (levels[i]["cols"].numel(),
+                              levels[i]["pair_a"].numel()))
+    total = {"earlier": 0.0, "this": 0.0}
+    out = {}
+    for i, lv in enumerate(levels):
+        sc.tile_factor(st, lv, 0.0)
+        if not lv["pair_a"].numel():
+            continue
+        got = {who: st.clone() for who in total}
+        osc.tile_update(got["earlier"], lv)
+        sc.tile_update(got["this"], lv)
+        dst, ptr = lv["pair_dst"], lv["pair_ptr"]
+        didx = torch.repeat_interleave(
+            torch.arange(dst.numel(), device=st.device), torch.diff(ptr))
+        bound = st[dst].abs().index_add_(
+            0, didx, st[lv["pair_a"]].abs() @ st[lv["pair_b"]].abs().mT)
+        lim = 2.0 * (B + float(torch.diff(ptr).max()) + 1.0) \
+            * (eps * bound + tiny)
+        if not bool(torch.all((got["this"][dst] - got["earlier"][dst]).abs()
+                              <= lim)):
+            cs.fail(f"K9{sfx} level {i}: the builds differ beyond its bound")
+        work = {who: st.clone() for who in total}
+        calls = {"earlier": lambda: osc.tile_update(work["earlier"], lv),
+                 "this": lambda: sc.tile_update(work["this"], lv)}
+        for who in WHO:
+            total[who] += cs.graph_ms(calls[who], reps=5, replays=3) / 2
+        if i == wide:
+            out["k9_widest"] = turns(calls)
+        sc.tile_update(st, lv)
+    out["k9_levels_graph_ms"] = total
+    out["k9_stats"] = cs.update_level_stats(levels, wide)
+    return out
+
+
 def tiles_case(old, dev, args) -> dict:
     import chip_smoke as cs
     from sedumi_tpu_torch import kernels
@@ -185,7 +237,8 @@ def tiles_case(old, dev, args) -> dict:
                     "diag_ms": {"earlier": d_old, "this": d_new},
                     "off_ms": {"earlier": o_old, "this": o_new},
                     "bit_equal": cs.bit_diff(w_old, w_new)[0]}
-            L = sc.factor_tiles(st, levels, 0.0)
+            row.update(k9_levels(osc, sc, st, levels, sfx))
+            L = st
             rhs = torch.randn(aop.meta["ntiles_n"], generator=gen,
                               dtype=torch.float64).to(dev, dtype)
             calls = {"earlier": lambda: osc.tile_solve(L, rhs, levels),
@@ -273,6 +326,17 @@ def dd_case(old, dev, args) -> dict:
     for m, label in cs.DD_SOLVE_SHAPES:
         M = cs.spd_with_cond(m, 1e14, gen).to(dev)
         b = torch.randn(m, generator=gen, dtype=torch.float64).to(dev)
+        Sh, Sl = M[:, :48], torch.zeros_like(M)[:, :48]
+        calls = {"earlier": lambda: odd.dd_panel_chol(Sh, Sl),
+                 "this": lambda: dd.dd_panel_chol(Sh, Sl)}
+        got = {k: v() for k, v in calls.items()}
+        if not (same({k: v[:4] for k, v in got.items()})
+                and bool(got["this"][4]) == bool(got["earlier"][4])):
+            cs.fail(f"the builds' dd_panel_chol differ at m={m}")
+        report(out, f"K7 first panel {m} x 48 ({label})", turns(calls))
+        calls = {"earlier": lambda: odd.dd_chol(M),
+                 "this": lambda: dd.dd_chol(M)}
+        report(out, f"dd_chol m={m} ({label})", turns(calls, reps=3))
         f, fo = dd.dd_chol(M), odd.dd_chol(M)
         if not (cs.bit_diff(f.Lh, fo.Lh)[0] and cs.bit_diff(f.Ll, fo.Ll)[0]):
             cs.fail(f"the builds' dd_chol factors differ at m={m}")

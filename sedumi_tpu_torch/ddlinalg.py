@@ -395,17 +395,20 @@ def dd_panel_chol(Sh, Sl):
     if Sl.shape != Sh.shape or not 0 < w <= 64 or nr < w:
         raise ValueError(f"dd_panel_chol needs an [nr, w] panel with "
                          f"nr >= w and w <= 64, got {tuple(Sh.shape)}")
-    # the kernel updates the rows below the diagonal block in place
-    Sh = Sh.clone(memory_format=torch.contiguous_format)
-    Sl = Sl.clone(memory_format=torch.contiguous_format)
-    kernels.check_cuda(Sh, Sl, dtype=_F64)
-    Lh, Ll = torch.zeros_like(Sh), torch.zeros_like(Sh)
+    # the kernel reads S through its row stride (a column panel of A runs
+    # without a copy) and writes every element of L, I and ok
+    if Sh.stride() != Sl.stride() or Sh.stride(1) != 1 \
+            or Sh.stride(0) < w:
+        Sh, Sl = Sh.contiguous(), Sl.contiguous()
+    kernels.check_cuda(Sh, Sl, dtype=_F64, contiguous=False)
+    Lh = torch.empty(nr, w, dtype=_F64, device=Sh.device)
+    Ll = torch.empty_like(Lh)
     Ih = torch.empty(w, w, dtype=_F64, device=Sh.device)
     Il = torch.empty_like(Ih)
-    ok = torch.ones(1, dtype=torch.int32, device=Sh.device)
+    ok = torch.empty(1, dtype=torch.int32, device=Sh.device)
     kernels.launch("dd_chol.cu", "dd_panel_chol_launch", Sh.data_ptr(),
-                   Sl.data_ptr(), nr, w, Lh.data_ptr(), Ll.data_ptr(),
-                   Ih.data_ptr(), Il.data_ptr(), ok.data_ptr())
+                   Sl.data_ptr(), Sh.stride(0), nr, w, Lh.data_ptr(),
+                   Ll.data_ptr(), Ih.data_ptr(), Il.data_ptr(), ok.data_ptr())
     kernels.LAUNCHES["dd_panel_chol"] += 1
     return Lh, Ll, Ih, Il, ok[0] == 1
 

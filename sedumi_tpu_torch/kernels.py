@@ -63,15 +63,16 @@ SOURCES = {
         "dd_chol_solve_launch": [_P, _P, _LL, _P, _P, _P, _P, _I, _I,
                                  _P, _P, _P]},
     "dd_chol.cu": {
-        "dd_panel_chol_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P]},
+        "dd_panel_chol_launch": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P]},
     "tile_chol.cu": {
         "tile_diag_launch": [_P, _P, _P, _I, _I, _D, _D, _P],
         "tile_off_launch": [_P, _P, _P, _I, _I, _P],
         "tile_diag_f32_launch": [_P, _P, _P, _I, _I, _D, _D, _P],
         "tile_off_f32_launch": [_P, _P, _P, _I, _I, _P]},
     "tile_update.cu": {
-        "tile_update_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
-        "tile_update_f32_launch": [_P, _P, _P, _P, _P, _I, _I, _P]},
+        "tile_update_launch": [_P] * 10 + [_I, _I, _P],
+        "tile_update_f32_launch": [_P] * 10 + [_I, _I, _P]},
     "tile_solve.cu": {
         "tile_solve_fwd_launch": [_P] * 11 + [_I, _I, _I, _P],
         "tile_solve_bwd_launch": [_P] * 11 + [_I, _I, _I, _P],

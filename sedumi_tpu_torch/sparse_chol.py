@@ -225,6 +225,7 @@ def level_maps(dslot, oslot, omask, pa, pb, pdst, pmask, orow,
                            and off_cidx its position in cols;
       pair_dst, pair_ptr   the valid update pairs (pair_a, pair_b) grouped
                            by destination slot;
+      chunk_ptr, ...       K9's work list over those pairs (update_chunks);
       fs_row, fs_ptr       the off tiles (fs_slot, fs_col) grouped by
                            destination row tile, for the forward solve.
     """
@@ -251,10 +252,48 @@ def level_maps(dslot, oslot, omask, pa, pb, pdst, pmask, orow,
             off_cidx=np.repeat(np.arange(cols.size), noff),
             pair_dst=pair_dst, pair_ptr=pair_ptr.astype(np.int64),
             pair_a=a[porder], pair_b=b[porder],
+            **update_chunks(pair_ptr),
             fs_row=fs_row, fs_ptr=fs_ptr.astype(np.int64),
             fs_slot=off_slot[forder], fs_col=off_col[forder]))
     return tuple(out)
 
+
+def update_chunks(pair_ptr) -> dict:
+    """K9's work list for one level, from its pairs' CSR by destination:
+    each destination's pairs cut, in plan order, into chunks of at most
+    ceil(pairs / destinations) pairs (int64 numpy).
+
+      chunk_ptr            [nchunk + 1] each chunk's pairs, consecutive
+                           ranges covering [0, pairs) in order;
+      chunk_dst            [nchunk] its destination (position in pair_dst);
+      dst_chunk            [ndst + 1] each destination's chunks (a CSR);
+      dst_part             [ndst] the scratch slot of a split destination's
+                           first chunk (its chunks' slots follow in chunk
+                           order), -1 for a destination of one chunk;
+      part_chunk           [nsplit] the chunk of each scratch slot: the
+                           order in which a split destination's sums add.
+    """
+    ptr = np.asarray(pair_ptr, np.int64)
+    cnt = np.diff(ptr)
+    nd = cnt.size
+    per = max(1, -(-int(ptr[-1] - ptr[0]) // max(nd, 1)))
+    nch = -(-cnt // per)
+    dst_chunk = np.concatenate([[0], np.cumsum(nch)]).astype(np.int64)
+    chunk_dst = np.repeat(np.arange(nd, dtype=np.int64), nch)
+    k = np.arange(chunk_dst.size, dtype=np.int64) - dst_chunk[chunk_dst]
+    chunk_ptr = np.concatenate([ptr[chunk_dst] + k * per,
+                                ptr[-1:]]).astype(np.int64)
+    split = nch > 1
+    slot = np.concatenate([[0], np.cumsum(np.where(split, nch, 0))])
+    dst_part = np.where(split, slot[:-1], -1).astype(np.int64)
+    part_chunk = np.nonzero(split[chunk_dst])[0].astype(np.int64)
+    return dict(chunk_ptr=chunk_ptr, chunk_dst=chunk_dst,
+                dst_chunk=dst_chunk, dst_part=dst_part,
+                part_chunk=part_chunk)
+
+
+# K9's sub-tiles per destination: 64 x 64 blocks of a tile of order <= 128
+UPDATE_MAX_SUB = 4
 
 # K10's flattened level arrays (flatten_levels), all int64
 FLAT_KEYS = ("lev_cols", "cols", "dslot", "col_off", "lev_off", "off_slot",
@@ -312,11 +351,16 @@ class LevelMaps(tuple):
 
 
 def levels_to(levels, device) -> LevelMaps:
-    """The per-level maps as int64 tensors on `device`, with K10's
+    """The per-level maps as int64 tensors on `device`, with K9's tickets
+    (`upd_ticket`, int32 zeros, UPDATE_MAX_SUB a destination) and K10's
     flattened arrays, checked for the kernels once here."""
     out = LevelMaps({k: torch.as_tensor(np.ascontiguousarray(v),
                                         dtype=torch.int64, device=device)
                      for k, v in lv.items()} for lv in levels)
+    for lv in out:
+        lv["upd_ticket"] = torch.zeros(
+            UPDATE_MAX_SUB * lv["pair_dst"].numel(), dtype=torch.int32,
+            device=device)
     flat = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
             for k, v in flatten_levels(levels).items()}
     flat["bar"] = torch.zeros(2, dtype=torch.int32, device=device)
@@ -444,16 +488,32 @@ def tile_update_plain(st: torch.Tensor, lv: dict) -> None:
     st.index_add_(0, dst, U, alpha=-1.0)
 
 
+_UPDATE_KEYS = ("pair_dst", "pair_a", "pair_b", "chunk_ptr", "chunk_dst",
+                "dst_chunk", "dst_part")
+
+
 def _tile_update_kernel(st: torch.Tensor, lv: dict) -> None:
+    """K9 over the level's work list (update_chunks, with levels_to's
+    tickets); tiles of order above 128 or levels without the list raise."""
     sfx = _suffix(st)
+    B = st.shape[-1]
+    nsub = (-(-B // 64)) ** 2
+    if nsub > UPDATE_MAX_SUB:
+        raise ValueError(f"K9 takes tiles of order at most 128, got {B}")
+    if "upd_ticket" not in lv or lv["upd_ticket"].numel() \
+            < UPDATE_MAX_SUB * lv["pair_dst"].numel():
+        raise ValueError("K9 takes the levels of levels_to")
     kernels.check_cuda(st)
-    kernels.check_cuda(lv["pair_dst"], lv["pair_ptr"], lv["pair_a"],
-                       lv["pair_b"], dtype=torch.int64)
+    kernels.check_cuda(*(lv[k] for k in _UPDATE_KEYS), dtype=torch.int64)
+    kernels.check_cuda(lv["upd_ticket"], dtype=torch.int32)
+    nsplit = lv["part_chunk"].numel()
+    part = torch.empty(nsplit * nsub * 64 * 64, dtype=st.dtype,
+                       device=st.device) if nsplit else None
     kernels.launch("tile_update.cu", f"tile_update{sfx}_launch",
-                   st.data_ptr(), lv["pair_dst"].data_ptr(),
-                   lv["pair_ptr"].data_ptr(), lv["pair_a"].data_ptr(),
-                   lv["pair_b"].data_ptr(), lv["pair_dst"].numel(),
-                   st.shape[-1])
+                   st.data_ptr(), *(lv[k].data_ptr() for k in _UPDATE_KEYS),
+                   lv["upd_ticket"].data_ptr(),
+                   None if part is None else part.data_ptr(),
+                   lv["chunk_dst"].numel(), B)
     kernels.LAUNCHES["tile_update" + sfx] += 1
 
 

@@ -649,16 +649,20 @@ def test_dd_chol_solve_refuses_orders(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,pivot", [(120, False), (200, True)])
-def test_dd_panel_chol_kernel(cuda, m, pivot, monkeypatch):
-    """K7 inside dd_chol bit for bit against the plain panel, at cond 1e14
-    or with a forced non-positive pivot (ok False)."""
-    if pivot:
+@pytest.mark.parametrize("m,case", [(120, "cond"), (200, "pivot"),
+                                    (48, "cond"), (666, "cond"),
+                                    (100, "nan")])
+def test_dd_panel_chol_kernel(cuda, m, case, monkeypatch):
+    """K7 inside dd_chol bit for bit against the plain panel (L, the
+    panels' inverses, ok), at cond 1e14 (m = 48: one panel, nr == w; m =
+    666: a last panel 42 wide), with a forced non-positive pivot or with
+    a NaN pivot (ok False; NaN where the plain version has NaN)."""
+    if case == "cond":
+        M, _, _ = residual_case(m, m)
+    else:
         B = np.random.default_rng(m).standard_normal((m, m))
         M = B @ B.T / m + np.eye(m)
-        M[70, 70] = -5.0
-    else:
-        M, _, _ = residual_case(m, m)
+        M[70, 70] = -5.0 if case == "pivot" else np.nan
     A = torch.as_tensor(M, device=cuda)
     n0 = kernels.LAUNCHES["dd_panel_chol"]
     fk = ddlinalg.dd_chol(A)
@@ -666,10 +670,29 @@ def test_dd_panel_chol_kernel(cuda, m, pivot, monkeypatch):
     monkeypatch.setattr(ddlinalg, "dd_panel_chol",
                         ddlinalg.dd_panel_chol_plain)
     fp = ddlinalg.dd_chol(A)
-    assert bool(fk.ok) == bool(fp.ok) == (not pivot)
-    assert bits_equal(fk.Lh, fp.Lh) and bits_equal(fk.Ll, fp.Ll)
+    assert bool(fk.ok) == bool(fp.ok) == (case == "cond")
+    same = bits_equal if case != "nan" else bits_or_nan
+    assert same(fk.Lh, fp.Lh) and same(fk.Ll, fp.Ll)
     for pk, pp in zip(fk.inv_diag, fp.inv_diag):
-        assert all(bits_equal(a, b) for a, b in zip(pk, pp))
+        assert all(same(a, b) for a, b in zip(pk, pp))
+
+
+@pytest.mark.cuda
+def test_dd_panel_chol_strided_panel(cuda):
+    """K7 reads a column panel of A through its row stride, without a
+    copy, and leaves it untouched: the same bits as on a contiguous copy
+    and as the plain version, at m = 666 (one panel 666 x 48)."""
+    M, _, _ = residual_case(666, 7)
+    A = torch.as_tensor(M, device=cuda)
+    Al = A * 2.0**-55
+    Sh, Sl = A[:, 96:144], Al[:, 96:144]
+    before = (Sh.clone(), Sl.clone())
+    got = ddlinalg.dd_panel_chol(Sh, Sl)
+    assert bits_equal(Sh, before[0]) and bits_equal(Sl, before[1])
+    for want in (ddlinalg.dd_panel_chol(Sh.contiguous(), Sl.contiguous()),
+                 ddlinalg.dd_panel_chol_plain(Sh, Sl)):
+        assert all(bits_or_nan(a, b) for a, b in zip(got[:4], want[:4]))
+        assert bool(got[4]) == bool(want[4])
 
 
 def ada_matrix(n, seed):
@@ -681,12 +704,15 @@ def ada_matrix(n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,B", [(3000, 128), (600, 32)])
+@pytest.mark.parametrize("n,B", [(3000, 128), (600, 32), (800, 48),
+                                 (300, 20)])
 def test_tile_kernels(cuda, n, B):
     """K8 and K9 level by level against the plain versions from the same
     storage (rungs equal; factor within 1e-10 of max|L|; update within
     2 (B + P + 1) eps (|D| + sum |A| |B|'), P the destination's pair
-    count), then K10 on the kernels' factor (within 1e-10 of max|x|)."""
+    count, and bit for bit equal to a second call), then K10 on the
+    kernels' factor (within 1e-10 of max|x|).  B = 48 is not a multiple
+    of K9's 64-wide block tile, B = 20 not of its 16-wide slab."""
     M = ada_matrix(n, n)
     f = sparse_chol.SparseCholesky(M, B=B, device=cuda)
     st = f.storage(M)
@@ -708,10 +734,12 @@ def test_tile_kernels(cuda, n, B):
         bound = st[dst].abs().index_add_(
             0, didx, st[lv["pair_a"]].abs() @ st[lv["pair_b"]].abs().mT)
         c = 2.0 * (B + float(torch.diff(ptr).max()) + 1.0)
-        ref = st.clone()
+        ref, again = st.clone(), st.clone()
         sparse_chol.tile_update(st, lv)
+        sparse_chol.tile_update(again, lv)
         sparse_chol.tile_update_plain(ref, lv)
         assert bool(torch.all((st[dst] - ref[dst]).abs() <= c * EPS * bound))
+        assert bits_equal(st, again)
     rhs = torch.as_tensor(np.random.default_rng(n).standard_normal(f.plan.n),
                           device=cuda)
     n0 = kernels.LAUNCHES["tile_solve"]
@@ -843,7 +871,8 @@ def test_arch0_witness(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,B", [(3000, 128), (600, 32)])
+@pytest.mark.parametrize("n,B", [(3000, 128), (600, 32), (800, 48),
+                                 (300, 20)])
 def test_tile_kernels_f32(cuda, n, B):
     """K8-f32 and K9-f32 level by level against the plain f32 versions
     from the same f32 storage (rungs equal; factor within 1e-4 of max|L|:
@@ -874,9 +903,11 @@ def test_tile_kernels_f32(cuda, n, B):
         bound = st[dst].abs().index_add_(
             0, didx, st[lv["pair_a"]].abs() @ st[lv["pair_b"]].abs().mT)
         c = 2.0 * (B + float(torch.diff(ptr).max()) + 1.0)
-        ref = st.clone()
+        ref, again = st.clone(), st.clone()
         sparse_chol.tile_update(st, lv)
+        sparse_chol.tile_update(again, lv)
         sparse_chol.tile_update_plain(ref, lv)
+        assert bits_equal(st, again)
         diff = (st[dst] - ref[dst]).abs()
         excess = diff - c * (eps32 * bound + tiny32)
         w = int(torch.argmax(excess))
@@ -898,6 +929,60 @@ def test_tile_kernels_f32(cuda, n, B):
                                                 "tile_solve"))
     assert delta["tile_factor"] == delta["tile_update"] == \
         delta["tile_solve"] == 0
+
+
+def split_level(B, dtype, dev, seed=3):
+    """Random tile storage and a level whose destination 0 takes 12
+    pairs and destinations 1-4 one each: K9 cuts destination 0 into
+    chunks (update_chunks) summed by the last block to arrive."""
+    rng = np.random.default_rng(seed)
+    st = torch.as_tensor(rng.standard_normal((40, B, B)), dtype=dtype,
+                         device=dev)
+    ptr = np.array([0, 12, 13, 14, 15, 16])
+    lv = dict(pair_dst=np.arange(30, 35), pair_ptr=ptr,
+              pair_a=rng.integers(0, 30, 16), pair_b=rng.integers(0, 30, 16))
+    lv.update(sparse_chol.update_chunks(ptr))
+    assert lv["part_chunk"].size > 1
+    lv = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+          for k, v in lv.items()}
+    lv["upd_ticket"] = torch.zeros(4 * 5, dtype=torch.int32, device=dev)
+    return st, lv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B", [128, 48, 20])
+def test_tile_update_split_destination(cuda, dtype, B):
+    """K9 (K9-f32) on a level with one destination of 12 pairs, cut into
+    chunks reduced in chunk order by the last block to arrive: within
+    K9's bound of the plain update, bit for bit equal to a second call,
+    the tickets back at zero; tiles of order above 128 and levels without
+    the work list raise, launching nothing."""
+    st, lv = split_level(B, dtype, cuda)
+    eps = float(torch.finfo(dtype).eps)
+    tiny = float(torch.finfo(dtype).tiny) if dtype == torch.float32 else 0.0
+    didx = torch.repeat_interleave(torch.arange(5, device=cuda),
+                                   torch.diff(lv["pair_ptr"]))
+    bound = st[lv["pair_dst"]].abs().index_add_(
+        0, didx, st[lv["pair_a"]].abs() @ st[lv["pair_b"]].abs().mT)
+    ref, again = st.clone(), st.clone()
+    sparse_chol.tile_update(st, lv)
+    assert lv["upd_ticket"].abs().sum().item() == 0
+    sparse_chol.tile_update(again, lv)
+    sparse_chol.tile_update_plain(ref, lv)
+    dst = lv["pair_dst"]
+    assert bool(torch.all((st[dst] - ref[dst]).abs()
+                          <= 2.0 * (B + 12 + 1) * (eps * bound + tiny)))
+    assert bits_equal(st, again)
+    big, lv_big = split_level(136, dtype, cuda)
+    name = "tile_update" + ("_f32" if dtype == torch.float32 else "")
+    n0 = kernels.LAUNCHES[name]
+    with pytest.raises(ValueError):
+        sparse_chol.tile_update(big, lv_big)
+    lv.pop("upd_ticket")
+    with pytest.raises(ValueError):
+        sparse_chol.tile_update(st, lv)
+    assert kernels.LAUNCHES[name] == n0
 
 
 @pytest.mark.cuda

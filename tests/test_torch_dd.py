@@ -15,6 +15,8 @@ twins on the card):
   tests hold K6 and the fused dd_chol_solve to bit for bit): each product
   of a solve within the GEMV bound of the plain route, the solve against
   the reference's;
+* K7's arrangement of the panel Cholesky (dd_emulation.panel_chol) bit
+  for bit against the plain panel and the reference's one-panel dd_chol;
 * DdSchurEngine.prepare/solve against the reference's engine (JAX through
   its pure_callback) from one scaling, dense and COO PSD buckets;
 * the dd64 phase breaking the f64 floor end to end, with the reference's
@@ -326,6 +328,65 @@ def test_dd_chol_pivot_rule_matches_reference():
     assert np.array_equal(np.isfinite(N(f_t.Lh)), fin)
     assert same_bits(N(f_t.Lh)[fin], f_j.Lh[fin])
     assert same_bits(N(f_t.Ll)[fin], f_j.Ll[fin])
+
+
+def panel_case(case, nr=100, w=48):
+    """A panel S [nr, w] of an SPD matrix of order nr: cond 1e14, a
+    non-positive pivot, a zero row and column (zero numerators over
+    pivots and diagonal entries of both signs), or a NaN pivot."""
+    rng = np.random.default_rng(nr + w)
+    if case == "cond":
+        A = ill_conditioned(rng, nr)
+    else:
+        B = rng.normal(size=(nr, nr))
+        A = B @ B.T / nr + np.eye(nr)
+        A[7, 7] = -2.0
+        if case == "zeros":
+            A[20, :] = 0.0
+            A[:, 20] = 0.0
+        elif case == "nan":
+            A[30, 30] = np.nan
+    return A[:, :w].copy(), A[:, :w] * 2.0**-55
+
+
+def bits_or_nan(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and bool(np.all(
+        (a.view(np.int64) == b.view(np.int64)) | (np.isnan(a) & np.isnan(b))))
+
+
+@pytest.mark.parametrize("case", ["cond", "pivot", "zeros", "nan"])
+@pytest.mark.parametrize("nr", [48, 100])
+def test_dd_panel_chol_lane_order_emulation(case, nr):
+    """K7's arrangement (dd_emulation.panel_chol: the diagonal block's
+    factor on its lower triangle, each row below a chain over the columns
+    against it, each column of the inverse its own substitution, with
+    qdiv's signed zeros) gives dd_panel_chol_plain's L, inverse and ok bit
+    for bit (NaN where it has NaN): the order of each entry's operations
+    is the plain version's."""
+    Sh, Sl = panel_case(case, nr)
+    got = ddemu.panel_chol(Sh, Sl)
+    want = tdd.dd_panel_chol_plain(T(Sh), T(Sl))
+    for a, b in zip(got[:4], want[:4]):
+        assert bits_or_nan(a, N(b))
+    assert got[4] == bool(want[4]) == (case == "cond")
+
+
+def test_dd_panel_chol_emulation_is_the_reference_panel():
+    """On one panel (m = 40, no trailing update) K7's arrangement is the
+    reference's dd_chol bit for bit, L and the diagonal inverse, with a
+    non-positive pivot and a zero row and column (finite entries; the
+    1e-300 pivot overflows L)."""
+    Sh, _ = panel_case("zeros", 40, 40)
+    Lh, Ll, Ih, Il, ok = ddemu.panel_chol(Sh, np.zeros_like(Sh))
+    with np.errstate(all="ignore"):
+        f_j = jdd.dd_chol(Sh)
+    assert not f_j.ok and not ok
+    (jh, jl), = f_j.inv_diag
+    for a, b in ((Lh, f_j.Lh), (Ll, f_j.Ll), (Ih, jh), (Il, jl)):
+        fin = np.isfinite(b)
+        assert np.array_equal(np.isfinite(a), fin)
+        assert same_bits(a[fin], b[fin])
 
 
 # ------------------------------------------------------------------ engine

@@ -6,7 +6,10 @@ is held against the port's plain versions (sparse_chol.tile_factor_plain,
 tile_solve_plain) and the reference's factor_tiles_ur / solve_tiles_ur on
 LP-like plans (many short columns, wide levels) and chain-like plans (a
 dense SDP-like pattern: one column per level) at B = 16, 32 and 128, and
-K10's flattened level arrays against level_maps entry for entry.
+K10's flattened level arrays against level_maps entry for entry.  K9's
+work list (sparse_chol.update_chunks) covers each destination's pairs
+once, in plan order, and its chunked sums (tile_emulation.tile_update)
+stay within K9's bound of the plain update.
 """
 
 from functools import partial
@@ -95,6 +98,65 @@ def test_flat_arrays_match_level_maps(kind, B):
         np.testing.assert_array_equal(fl["fs_slot"][o0:o1], lv["fs_slot"])
         np.testing.assert_array_equal(fl["fs_col"][o0:o1], lv["fs_col"])
     assert fl["lev_cols"][-1] == f.plan.ntc
+
+
+def test_update_chunks_split_heavy_destinations():
+    """A destination with more pairs than the level's mean is cut into
+    chunks of at most ceil(pairs / destinations), in plan order; its
+    chunks take consecutive scratch slots."""
+    got = tsc.update_chunks(np.array([0, 1, 6, 7, 8]))
+    assert {k: v.tolist() for k, v in got.items()} == dict(
+        chunk_ptr=[0, 1, 3, 5, 6, 7, 8], chunk_dst=[0, 1, 1, 1, 2, 3],
+        dst_chunk=[0, 1, 4, 5, 6], dst_part=[-1, 0, -1, -1],
+        part_chunk=[1, 2, 3])
+    empty = tsc.update_chunks(np.array([0]))
+    assert [v.tolist() for v in empty.values()] == [[0], [], [0], [], []]
+
+
+@pytest.mark.parametrize("kind,B", CASES)
+def test_update_work_list_covers_pairs_in_order(kind, B):
+    """Every level's chunks cover [0, pairs) in order, each inside one
+    destination's CSR range and at most ceil(pairs / destinations) long;
+    the split destinations' slots list their chunks in chunk order; and
+    the chunked update (K9's order of sums, tile_emulation.tile_update)
+    lands within K9's bound 2 (B + P + 1) eps (|D| + sum |A| |B|') of
+    tile_update_plain, level by level through the factor."""
+    M, f = plan_case(kind, B)
+    st = f.storage(M)
+    eps = float(np.finfo(np.float64).eps)
+    for lv, lvt in zip(f.plan.levels, f.levels):
+        ptr, cptr = lv["pair_ptr"], lv["chunk_ptr"]
+        nd = lv["pair_dst"].size
+        per = max(1, -(-int(ptr[-1]) // max(nd, 1)))
+        assert cptr[0] == 0 and cptr[-1] == ptr[-1]
+        assert np.all(np.diff(cptr) >= 1) and np.all(np.diff(cptr) <= per)
+        dch = lv["dst_chunk"]
+        np.testing.assert_array_equal(cptr[dch], ptr)
+        np.testing.assert_array_equal(
+            lv["chunk_dst"], np.repeat(np.arange(nd), np.diff(dch)))
+        split = np.diff(dch) > 1
+        np.testing.assert_array_equal(lv["dst_part"] >= 0, split)
+        slots = [lv["part_chunk"][s:s + n] for s, n in
+                 zip(lv["dst_part"][split], np.diff(dch)[split])]
+        want = [np.arange(dch[d], dch[d + 1]) for d in np.nonzero(split)[0]]
+        assert all(np.array_equal(g, w) for g, w in zip(slots, want))
+        assert lv["part_chunk"].size == sum(w.size for w in want)
+        assert lvt["upd_ticket"].tolist() == [0] * (
+            tsc.UPDATE_MAX_SUB * nd)
+        tsc.tile_factor_plain(st, lvt, 0.0)
+        if not nd:
+            continue
+        dst = lvt["pair_dst"]
+        didx = torch.repeat_interleave(torch.arange(nd),
+                                       torch.diff(lvt["pair_ptr"]))
+        bound = st[dst].abs().index_add_(
+            0, didx, st[lvt["pair_a"]].abs() @ st[lvt["pair_b"]].abs().mT)
+        c = 2.0 * (B + float(np.diff(ptr).max()) + 1.0)
+        ref = st.clone()
+        emu.tile_update(st, lvt)
+        tsc.tile_update_plain(ref, lvt)
+        assert bool(torch.all((st[dst] - ref[dst]).abs()
+                              <= c * eps * bound))
 
 
 def test_flatten_refuses_maps_that_do_not_fit():

@@ -5,8 +5,11 @@ of 32 and sum in fixed orders; these functions repeat their arithmetic
 step for step (one rounding per product and per sum, as the kernels do
 under nvcc --fmad=false), so on the CPU they show that the blocked order
 solves the same systems as the plain versions and the reference, and on
-the card the kernels can be held to them bit for bit.  jax-free: the card
-tests import it too.
+the card the kernels can be held to them bit for bit.  K9
+(csrc/tile_update.cu) multiplies on the tensor cores, whose inner order
+is the card's: tile_update repeats its work list (chunk sums, a split
+destination's sums added in chunk order) with torch's products.
+jax-free: the card tests import it too.
 """
 
 from __future__ import annotations
@@ -225,3 +228,31 @@ def tile_factor(st: torch.Tensor, lv: dict, reg: float,
     for s, d in zip(lv["off_slot"].tolist(), lv["off_dslot"].tolist()):
         st[s] = off_solve(st[s], st[d])
     return torch.tensor(rungs, dtype=torch.int32)
+
+
+# ----------------------------------------------------------------- K9
+
+
+def tile_update(st: torch.Tensor, lv: dict) -> None:
+    """One level of K9 over its work list (sparse_chol.update_chunks), in
+    place: each chunk's sum over its pairs in plan order; a destination
+    of one chunk subtracts it, a split one subtracts its chunks' sums
+    added in chunk order (its scratch slots, dst_part and part_chunk)."""
+    ptr, a, b = lv["chunk_ptr"], lv["pair_a"], lv["pair_b"]
+    sums = []
+    for i in range(lv["chunk_dst"].numel()):
+        s = torch.zeros_like(st[0])
+        for p in range(int(ptr[i]), int(ptr[i + 1])):
+            s = s + st[a[p]] @ st[b[p]].mT
+        sums.append(s)
+    for d in range(lv["pair_dst"].numel()):
+        c0, c1 = int(lv["dst_chunk"][d]), int(lv["dst_chunk"][d + 1])
+        slot = int(lv["dst_part"][d])
+        if slot < 0:
+            total = sums[c0]
+        else:
+            chunks = lv["part_chunk"][slot:slot + c1 - c0].tolist()
+            total = sums[chunks[0]]
+            for c in chunks[1:]:
+                total = total + sums[c]
+        st[lv["pair_dst"][d]] -= total
