@@ -1,7 +1,8 @@
 """The port's redesigned kernels beside an earlier build of the same
 kernels, on one card.
 
-    python3 parent_bench.py --parent DIR [--cases tiles,panels,dd,k13,solves]
+    python3 parent_bench.py --parent DIR
+                            [--cases tiles,panels,dd,k13,gemv,solves]
                             [--plans lp20k,sdp5k,sdp1200]
                             [--problems arch0,control07] [--repeat N]
 
@@ -36,6 +37,16 @@ mean and runs.  The cases (all by default):
 * k13: K13 with vectors at 2 x 60 in complex128 and complex64 and at one
   matrix of order 120 and 200 in complex128, beside torch.linalg.eigh,
   the builds' eigenvalues within 4 n eps ||A|| of each other;
+* gemv: K1 and K1-f32 at the path's orders (chip_smoke.K1_ORDERS:
+  174, 666, 948), alone and with lo (the earlier build's residual line:
+  K1, M @ lo, the subtraction), beside torch.addmv and M.sum(1), the
+  builds within their bounds of each other; K1 on one element beside a
+  one-element fill (a launch's fixed cost); K1's eager call at 666 by
+  part on the host clock (10^4 calls each: stream, function lookup,
+  checks, allocation, the whole wrapper); K11's df_matvec and df_vecmat
+  on socp-dense's and nb's double-float operators ([121, 400], [124,
+  2379]) and at [1001, 65536], beside torch.mv on the f64 operator, the
+  builds within their bounds of each other;
 * solves: whole solves of --problems (bundled examples) under 'auto' and
   'mixed' (a warm-up solve each first), the turns repeated --repeat
   times: each build's wall, iterations, phases with their walls, rel and
@@ -391,6 +402,162 @@ def k13_case(old, dev, args) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- gemv
+
+
+def host_us(fn, reps: int = 10000) -> float:
+    """Host microseconds a call over `reps` back-to-back calls (the queue
+    of launches is drained after the clock stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def wrapper_parts(old, M, v, rhs, lo) -> dict:
+    """K1's eager call by part, 10^4 calls each on the host clock: what
+    the earlier build's wrapper did (a torch.cuda.Stream a launch, the
+    library and function looked up by name, three contiguous calls,
+    check_cuda, torch.empty) and what this one does (the raw stream, the
+    function bound once, attribute checks, empty_like), each whole
+    wrapper, the three-call residual line and torch.addmv."""
+    from sedumi_tpu_torch import kernels, pcg
+
+    ok, opcg = old.kernels, old_module("pcg")
+    m = M.shape[0]
+    return {"earlier": {
+        "stream object": host_us(
+            lambda: torch.cuda.current_stream().cuda_stream),
+        "library and function by name": host_us(
+            lambda: getattr(ok._lib("dd_residual.cu"),
+                            "dd_matvec_residual_launch")),
+        "three contiguous calls": host_us(
+            lambda: (M.contiguous(), v.contiguous(), rhs.contiguous())),
+        "check_cuda": host_us(
+            lambda: ok.check_cuda(M, v, rhs, dtype=M.dtype)),
+        "torch.empty": host_us(
+            lambda: torch.empty(m, dtype=M.dtype, device=M.device)),
+        "wrapper": host_us(lambda: opcg.dd_matvec_residual(M, v, rhs)),
+        "residual line (K1, M @ lo, subtraction)": host_us(
+            lambda: opcg.dd_matvec_residual(M, v, rhs) - M @ lo)},
+        "this": {
+        "raw stream": host_us(kernels.raw_stream),
+        "bound function": host_us(
+            lambda: kernels.bound("dd_residual.cu",
+                                  "dd_matvec_residual_launch")),
+        "attribute checks": host_us(
+            lambda: (v.dtype != M.dtype or rhs.dtype != M.dtype
+                     or not v.is_cuda or not rhs.is_cuda
+                     or v.shape != (m,) or rhs.shape != (m,)
+                     or M.stride(1) != 1 or v.stride(0) != 1
+                     or rhs.stride(0) != 1)),
+        "empty_like": host_us(lambda: torch.empty_like(rhs)),
+        "residual_parts": host_us(lambda: pcg.residual_parts(m, 8)),
+        "wrapper": host_us(lambda: pcg.dd_matvec_residual(M, v, rhs)),
+        "wrapper with lo": host_us(
+            lambda: pcg.dd_matvec_residual(M, v, rhs, lo))},
+        "library": {"torch.addmv": host_us(
+            lambda: torch.addmv(rhs, M, v, alpha=-1.0)),
+            "M @ lo": host_us(lambda: M @ lo)}}
+
+
+def gemv_case(old, dev, args) -> dict:
+    import chip_smoke as cs
+    from sedumi_tpu_torch import df, pcg
+
+    opcg, odf = old_module("pcg"), old_module("df")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        u = float(torch.finfo(dtype).eps) / 2
+        for m in cs.K1_ORDERS:
+            M, v, rhs, lo = cs.k1_operands(m, m, dtype, 7 * m, dev)
+            S = (M.double().abs() @ v.double().abs())
+            tol = (2 * m + 64) * u * u * S \
+                + (m + 8) * u * (M.double().abs() @ lo.double().abs())
+            for fused in (False, True):
+                if fused:
+                    calls = {"earlier": lambda: opcg.dd_matvec_residual(
+                        M, v, rhs) - M @ lo,
+                        "this": lambda: pcg.dd_matvec_residual(M, v, rhs,
+                                                               lo)}
+                else:
+                    calls = {"earlier": lambda: opcg.dd_matvec_residual(
+                        M, v, rhs),
+                        "this": lambda: pcg.dd_matvec_residual(M, v, rhs)}
+                got = {who: c().double() for who, c in calls.items()}
+                diff = (got["this"] - got["earlier"]).abs()
+                if not bool(torch.all(diff <= 2 * u * got["earlier"].abs()
+                                      + tol)):
+                    cs.fail(f"K1 {dtype} m={m}: the builds differ beyond "
+                            f"their bounds")
+                row = turns(calls, reps=1000)
+                lib = lambda: torch.addmv(rhs, M, v, alpha=-1.0)
+                row["addmv_ms"] = cs.cuda_ms(lib, 1000)
+                row["addmv_graph_ms"] = cs.graph_ms(lib)
+                # PyTorch's own row reduction over the same bytes
+                row["row_sum_graph_ms"] = cs.graph_ms(lambda: M.sum(1))
+                row["max_diff"] = float(diff.max())
+                key = "K1" + ("-f32" if dtype == torch.float32 else "") \
+                    + f" m={m}" + (" with lo (earlier: K1, M @ lo, "
+                                   "subtraction)" if fused else "")
+                report(out, key, row)
+    # the fixed cost of a launch: K1 on one element, and a kernel that
+    # does nothing (PyTorch's fill of one element)
+    M, v, rhs, lo = cs.k1_operands(1, 1, torch.float64, 1, dev)
+    row = turns({"earlier": lambda: opcg.dd_matvec_residual(M, v, rhs),
+                 "this": lambda: pcg.dd_matvec_residual(M, v, rhs)},
+                reps=1000)
+    one = torch.empty(1, device=dev)
+    row["fill_graph_ms"] = cs.graph_ms(lambda: one.fill_(1.0))
+    report(out, "K1 m=1", row)
+    M, v, rhs, lo = cs.k1_operands(666, 666, torch.float64, 1, dev)
+    report(out, "K1 m=666 host us a call, by part",
+           wrapper_parts(old, M, v, rhs, lo))
+    pairs = cs.k11_operands(dev)
+    for label, (Ah, Al) in pairs.items():
+        rows, n = Ah.shape
+        A64 = Ah.double() + Al.double()
+        reps = 50 if rows * n > 10**7 else 1000
+        for k, fn in enumerate(("df_matvec", "df_vecmat")):
+            xh, xl = cs.df_vectors(n if fn == "df_matvec" else rows, k, dev)
+            x64 = xh.double() + xl.double()
+            if fn == "df_matvec":
+                calls = {"earlier": lambda: odf.df_matvec(Ah, Al, xh, xl),
+                         "this": lambda: df.df_matvec(Ah, Al, xh, xl)}
+                lib = lambda: torch.mv(A64, x64)
+                S = A64.abs() @ x64.abs()
+                nslab, vps = df.matvec_plan(rows, n)
+                chains = -(-n // 32) + 5 + 4 * -(-vps // 32) + 6 + nslab
+            else:
+                calls = {"earlier": lambda: odf.df_vecmat(xh, xl, Ah, Al),
+                         "this": lambda: df.df_vecmat(xh, xl, Ah, Al)}
+                lib = lambda: torch.mv(A64.T, x64)
+                S = x64.abs() @ A64.abs()
+                nslab, rps = df.vecmat_plan(rows, n)
+                chains = rows + rps + nslab - 1
+            # each build within (3 L + 30) 2^-48 S of the exact product,
+            # L its chain (df_gemv.cu's header; a warp a row and a thread
+            # a column, the earlier design: ceil(n / 32) + 5 for
+            # df_matvec, the rows for df_vecmat)
+            c = 3 * chains + 60
+            got = {who: df.df_to64(*f()) for who, f in calls.items()}
+            diff = (got["this"] - got["earlier"]).abs()
+            if not bool(torch.all(diff <= c * 2.0**-48 * S)):
+                cs.fail(f"K11 {fn} {label}: the builds differ beyond "
+                        f"their bounds")
+            row = turns(calls, reps=reps)
+            row["torch.mv_ms"] = cs.cuda_ms(lib, reps)
+            row["torch.mv_graph_ms"] = cs.graph_ms(lib)
+            row["max_diff"], row["shape"] = float(diff.max()), [rows, n]
+            report(out, f"K11 {fn} {label}", row)
+        del A64
+    return out
+
+
 # ----------------------------------------------------------------- solves
 
 
@@ -437,7 +604,7 @@ def solves_case(old, dev, args) -> dict:
 
 
 CASES = {"tiles": tiles_case, "panels": panels_case, "dd": dd_case,
-         "k13": k13_case, "solves": solves_case}
+         "k13": k13_case, "gemv": gemv_case, "solves": solves_case}
 
 
 def main() -> None:

@@ -11,12 +11,15 @@ semantics, so the hybrid phase of the precision ladder (solver.py) takes
 DfAOp on the same operators the reference does (A denser than 10%).
 
 :func:`df_matvec` and :func:`df_vecmat` are kernel K11: on CUDA tensors
-they launch csrc/df_gemv.cu (and raise if they cannot); on CPU tensors
-they run :func:`df_matvec_plain` / :func:`df_vecmat_plain`, the
-reference's chunked pairwise-tree arithmetic.
+they launch csrc/df_gemv.cu (and raise if they cannot) with the slab
+plans :func:`matvec_plan` / :func:`vecmat_plan`; on CPU tensors they run
+:func:`df_matvec_plain` / :func:`df_vecmat_plain`, the reference's
+chunked pairwise-tree arithmetic.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -94,37 +97,114 @@ def df_vecmat_plain(xh, xl, Ah, Al, chunk: int = 16384):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _launch(fn: str, a, b, c, d, rows: int, n: int):
-    args = [t.contiguous() for t in (a, b, c, d)]
-    kernels.check_cuda(*args, dtype=F32)
-    out = [torch.empty(rows if fn == "df_matvec" else n, dtype=F32,
-                       device=a.device) for _ in range(2)]
-    kernels.launch("df_gemv.cu", fn + "_launch",
-                   *(t.data_ptr() for t in args + out), rows, n)
-    kernels.LAUNCHES[fn] += 1
-    return out[0], out[1]
+# warps (df_matvec) and blocks (df_vecmat) a launch aims for: 32 warps
+# and two blocks an SM of the H100's 132
+_MV_WARPS = 4224
+_VM_BLOCKS = 264
+_VM_COLS = 512   # columns a df_vecmat block owns (csrc/df_gemv.cu)
+
+
+@functools.lru_cache(maxsize=None)
+def matvec_plan(rows: int, n: int) -> tuple[int, int]:
+    """(nslab, vps): K11's df_matvec cuts a row's float4 vectors into
+    nslab slabs of vps (a multiple of 32), a power of two of slabs (odd
+    counts ran slower on the H100) that gives the card about 32 (row,
+    slab) warps an SM, each lane at least two vectors."""
+    nv = n // 4
+    want = max(1, min(-(-_MV_WARPS // max(rows, 1)), nv // 64))
+    nslab = 1 << (want.bit_length() - 1)
+    vps = 32 * -(-nv // (32 * nslab))
+    return -(-nv // vps) if nv else 1, vps
+
+
+@functools.lru_cache(maxsize=None)
+def vecmat_plan(rows: int, n: int) -> tuple[int, int]:
+    """(nslab, rps): K11's df_vecmat cuts the rows into nslab slabs of
+    rps, enough (column block, slab) blocks to fill the card, each slab
+    at least eight rows."""
+    cols = max(1, -(-n // _VM_COLS))
+    nslab = max(1, min(-(-_VM_BLOCKS // cols), -(-rows // 8)))
+    rps = max(1, -(-rows // nslab))
+    return -(-rows // rps) if rows else 1, rps
+
+
+# device index -> int32 tickets of the slab merge, zeros between launches
+# (each kernel resets the ones it counted); grown outside graph capture.
+# A buffer that was outgrown stays alive in _RETIRED: a CUDA graph captured
+# before the growth still holds its address.
+_TICKETS: dict[int, torch.Tensor] = {}
+_RETIRED: list[torch.Tensor] = []
+
+
+def _tickets(A: torch.Tensor, count: int) -> int:
+    """The address of `count` zero tickets on A's device."""
+    have = _TICKETS.get(A.get_device())
+    if have is None or have.numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("df GEMV: the slab tickets must be allocated "
+                               "before graph capture (call once eagerly)")
+        if have is not None:
+            _RETIRED.append(have)
+        have = torch.zeros(max(count, 4096), dtype=torch.int32,
+                           device=A.device)
+        _TICKETS[A.get_device()] = have
+    return have.data_ptr()
+
+
+def _operands(fn: str, Ah, Al, xh, xl, length: int):
+    """Ah/Al with one unit-stride row layout and contiguous f32 vectors of
+    `length`, or ValueError."""
+    if (Ah.dtype != F32 or Al.dtype != F32 or xh.dtype != F32
+            or xl.dtype != F32 or not Al.is_cuda or not xh.is_cuda
+            or not xl.is_cuda or Ah.dim() != 2 or Al.shape != Ah.shape
+            or xh.shape != (length,) or xl.shape != (length,)):
+        raise ValueError(f"{fn}: A {tuple(Ah.shape)}/{tuple(Al.shape)}, x "
+                         f"{tuple(xh.shape)}/{tuple(xl.shape)}: f32 CUDA "
+                         f"tensors of matching shapes")
+    if Ah.stride(1) != 1 or Al.stride() != Ah.stride():
+        Ah, Al = Ah.contiguous(), Al.contiguous()
+    if xh.stride(0) != 1:
+        xh = xh.contiguous()
+    if xl.stride(0) != 1:
+        xl = xl.contiguous()
+    return Ah, Al, xh, xl
 
 
 def df_matvec(Ah, Al, xh, xl):
-    """y = A x in df (kernel K11's df_matvec on the card)."""
+    """y = A x in df (kernel K11's df_matvec on the card).  The card's
+    slab tickets are one buffer a device: launches on two streams at once
+    would share them, so K11 runs on one stream at a time."""
     if not Ah.is_cuda:
         return df_matvec_plain(Ah, Al, xh, xl)
     rows, n = Ah.shape
-    if Al.shape != Ah.shape or xh.shape != (n,) or xl.shape != (n,):
-        raise ValueError(f"df_matvec: A {tuple(Ah.shape)}/{tuple(Al.shape)}"
-                         f", x {tuple(xh.shape)}/{tuple(xl.shape)}")
-    return _launch("df_matvec", Ah, Al, xh, xl, rows, n)
+    Ah, Al, xh, xl = _operands("df_matvec", Ah, Al, xh, xl, n)
+    nslab, vps = matvec_plan(rows, n)
+    buf = Ah.new_empty(2 * rows * (1 + (nslab if nslab > 1 else 0)))
+    out = buf.data_ptr()
+    kernels.launch("df_gemv.cu", "df_matvec_launch", Ah.data_ptr(),
+                   Al.data_ptr(), Ah.stride(0), xh.data_ptr(), xl.data_ptr(),
+                   out, out + 4 * rows, out + 8 * rows if nslab > 1 else None,
+                   _tickets(Ah, rows), rows, n, nslab, vps)
+    kernels.LAUNCHES["df_matvec"] += 1
+    return buf[:rows], buf[rows:2 * rows]
 
 
 def df_vecmat(xh, xl, Ah, Al):
-    """y = x A in df (kernel K11's df_vecmat on the card)."""
+    """y = x A in df (kernel K11's df_vecmat on the card; one stream at a
+    time, as df_matvec)."""
     if not Ah.is_cuda:
         return df_vecmat_plain(xh, xl, Ah, Al)
     rows, n = Ah.shape
-    if Al.shape != Ah.shape or xh.shape != (rows,) or xl.shape != (rows,):
-        raise ValueError(f"df_vecmat: A {tuple(Ah.shape)}/{tuple(Al.shape)}"
-                         f", x {tuple(xh.shape)}/{tuple(xl.shape)}")
-    return _launch("df_vecmat", xh, xl, Ah, Al, rows, n)
+    Ah, Al, xh, xl = _operands("df_vecmat", Ah, Al, xh, xl, rows)
+    nslab, rps = vecmat_plan(rows, n)
+    buf = Ah.new_empty(2 * n * (1 + (nslab if nslab > 1 else 0)))
+    out = buf.data_ptr()
+    kernels.launch("df_gemv.cu", "df_vecmat_launch", xh.data_ptr(),
+                   xl.data_ptr(), Ah.data_ptr(), Al.data_ptr(), Ah.stride(0),
+                   out, out + 4 * n, out + 8 * n if nslab > 1 else None,
+                   _tickets(Ah, -(-n // _VM_COLS)), rows, n, nslab, rps)
+    kernels.LAUNCHES["df_vecmat"] += 1
+    return buf[:n], buf[n:2 * n]
 
 
 class DfAOp:

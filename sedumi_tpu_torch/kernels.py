@@ -38,8 +38,10 @@ _JACOBI_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I, _P]
 # source file -> {C launch function: argtypes}
 SOURCES = {
     "dd_residual.cu": {
-        "dd_matvec_residual_launch": [_P, _P, _P, _P, _I, _I, _P],
-        "dd_matvec_residual_f32_launch": [_P, _P, _P, _P, _I, _I, _P]},
+        "dd_matvec_residual_launch": [_P, _LL, _P, _P, _P, _P, _I, _I, _I,
+                                      _P],
+        "dd_matvec_residual_f32_launch": [_P, _LL, _P, _P, _P, _P, _I, _I,
+                                          _I, _P]},
     "psd_coo.cu": {
         "psd_coo_outer_launch": [_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _P],
@@ -79,8 +81,8 @@ SOURCES = {
         "tile_solve_fwd_f32_launch": [_P] * 11 + [_I, _I, _I, _P],
         "tile_solve_bwd_f32_launch": [_P] * 11 + [_I, _I, _I, _P]},
     "df_gemv.cu": {
-        "df_matvec_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-        "df_vecmat_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P]},
+        "df_matvec_launch": [_P, _P, _LL] + [_P] * 6 + [_I] * 4 + [_P],
+        "df_vecmat_launch": [_P] * 4 + [_LL] + [_P] * 4 + [_I] * 4 + [_P]},
     "jacobi_eigh.cu": {
         "jacobi_eigh_f64_launch": _JACOBI_ARGS,
         "jacobi_eigh_f32_launch": _JACOBI_ARGS},
@@ -115,6 +117,8 @@ LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
 VARIANT_LAUNCHES: dict[str, int] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# C launch function name -> its ctypes function, bound once
+_FNS: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -187,11 +191,24 @@ def _lib(src: str) -> ctypes.CDLL:
     return lib
 
 
+def bound(src: str, fn: str):
+    """The C launch function `fn` of `src`, loaded and bound once."""
+    f = _FNS.get(fn)
+    if f is None:
+        f = _FNS[fn] = getattr(_lib(src), fn)
+    return f
+
+
+def raw_stream() -> int:
+    """The current CUDA stream of the current device, as an integer,
+    without building a torch.cuda.Stream (CUDA builds of torch only)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(src: str, fn: str, *args) -> None:
     """Call a C launch function on the current CUDA stream; raise if the
     launch was refused."""
-    stream = torch.cuda.current_stream().cuda_stream
-    code = getattr(_lib(src), fn)(*args, stream)
+    code = bound(src, fn)(*args, raw_stream())
     if code != 0:
         raise RuntimeError(f"CUDA launch {fn} failed with error {code}")
 

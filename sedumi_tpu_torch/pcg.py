@@ -10,10 +10,13 @@ Veltkamp constant (fp.split_const).
 :func:`dd_matvec_residual` is kernel K1: on a CUDA tensor it launches the
 hand-written kernel csrc/dd_residual.cu (its f64 or f32 build, and raises
 if it cannot); on a CPU tensor it runs :func:`dd_matvec_residual_plain`.
+The refinement's residual (rhs - M hi) - M lo is one K1 call on the card
+(the kernel sums M lo in the same pass over M).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -47,9 +50,10 @@ def two_prod(a, b):
 
 
 def dd_matvec_residual_plain(M: torch.Tensor, v: torch.Tensor,
-                             rhs: torch.Tensor) -> torch.Tensor:
+                             rhs: torch.Tensor,
+                             lo: torch.Tensor | None = None) -> torch.Tensor:
     """rhs - M v in compensated arithmetic, rounded to M's dtype (plain
-    PyTorch).
+    PyTorch); with `lo`, that residual minus the plain product M lo.
 
     Every product M_ij v_j is split exactly (TwoProd); the row sums of the
     high parts run as a pairwise TwoSum tree whose errors, with the low
@@ -67,28 +71,70 @@ def dd_matvec_residual_plain(M: torch.Tensor, v: torch.Tensor,
         s = t
     total_lo = comp[:, 0] + torch.sum(e, dim=1)
     d, derr = two_sum(rhs, -s[:, 0])
-    return d + (derr - total_lo)
+    r = d + (derr - total_lo)
+    return r if lo is None else r - M @ lo
 
 
-def dd_matvec_residual(M: torch.Tensor, v: torch.Tensor,
-                       rhs: torch.Tensor) -> torch.Tensor:
+# 16-byte vectors K1 leaves a part at most, by itemsize
+_K1_VECTORS = {8: 8, 4: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def residual_parts(n: int, itemsize: int) -> int:
+    """Parts K1 cuts a row of n elements into (csrc/dd_residual.cu's
+    order, whatever warps play them): the fewest of 32, 64, 128, 256 that
+    leave a part at most eight 16-byte vectors in f64 and one in f32.
+    The summation order decides where a solve lands: with these rules
+    control07 lands, in f64 and under 'mixed' (whose f32 phase ends where
+    K1-f32's residuals put it), where the one-warp-a-row order landed it
+    (paired solves, PERF.md section 6)."""
+    parts, vecs = 32, n * itemsize // 16
+    while parts < 256 and _K1_VECTORS[itemsize] * parts < vecs:
+        parts *= 2
+    return parts
+
+
+# dtype -> (launch count, C launch function) of K1's two builds
+_K1 = {torch.float64: ("dd_matvec_residual", "dd_matvec_residual_launch"),
+       torch.float32: ("dd_matvec_residual_f32",
+                       "dd_matvec_residual_f32_launch")}
+
+
+def dd_matvec_residual(M: torch.Tensor, v: torch.Tensor, rhs: torch.Tensor,
+                       lo: torch.Tensor | None = None) -> torch.Tensor:
     """rhs - M v in compensated arithmetic (kernel K1 on the card: its
-    f64 build, or K1-f32 for f32 operands)."""
+    f64 build, or K1-f32 for f32 operands); with `lo`, minus M lo, summed
+    in the kernel's pass over M (the refinement's residual line, one
+    launch).  M may have any row stride and storage offset."""
     if not M.is_cuda:
-        return dd_matvec_residual_plain(M, v, rhs)
-    M, v, rhs = M.contiguous(), v.contiguous(), rhs.contiguous()
-    f32 = M.dtype == torch.float32
-    kernels.check_cuda(M, v, rhs, dtype=torch.float32 if f32
-                       else torch.float64)
+        return dd_matvec_residual_plain(M, v, rhs, lo)
+    dt = M.dtype
     m, n = M.shape
-    if v.shape != (n,) or rhs.shape != (m,):
-        raise ValueError(f"shapes M {tuple(M.shape)}, v {tuple(v.shape)}, "
-                         f"rhs {tuple(rhs.shape)} do not match")
-    out = torch.empty(m, dtype=M.dtype, device=M.device)
-    name = "dd_matvec_residual_f32" if f32 else "dd_matvec_residual"
-    kernels.launch("dd_residual.cu", name + "_launch", M.data_ptr(),
-                   v.data_ptr(), rhs.data_ptr(), out.data_ptr(), m, n)
-    kernels.LAUNCHES[name] += 1
+    k1 = _K1.get(dt)
+    if (k1 is None or v.dtype != dt or rhs.dtype != dt or not v.is_cuda
+            or not rhs.is_cuda or v.shape != (n,) or rhs.shape != (m,)
+            or (lo is not None and (lo.dtype != dt or not lo.is_cuda
+                                    or lo.shape != (n,)))):
+        raise ValueError(
+            f"dd_matvec_residual: M {tuple(M.shape)} {dt}, v "
+            f"{tuple(v.shape)} {v.dtype}, rhs {tuple(rhs.shape)} "
+            f"{rhs.dtype}" + ("" if lo is None else
+                              f", lo {tuple(lo.shape)} {lo.dtype}")
+            + ": CUDA tensors of one dtype (f64 or f32) and matching shapes")
+    if M.stride(1) != 1:
+        M = M.contiguous()
+    if v.stride(0) != 1:
+        v = v.contiguous()
+    if rhs.stride(0) != 1:
+        rhs = rhs.contiguous()
+    if lo is not None and lo.stride(0) != 1:
+        lo = lo.contiguous()
+    out = torch.empty_like(rhs)
+    kernels.launch("dd_residual.cu", k1[1], M.data_ptr(), M.stride(0),
+                   v.data_ptr(), rhs.data_ptr(),
+                   None if lo is None else lo.data_ptr(), out.data_ptr(), m,
+                   n, residual_parts(n, M.element_size()))
+    kernels.LAUNCHES[k1[0]] += 1
     return out
 
 
@@ -96,12 +142,14 @@ def refine_solve_dd(M: torch.Tensor, f, rhs: torch.Tensor,
                     iters: int = 3) -> torch.Tensor:
     """Iterative refinement with compensated residuals and double-double
     solution accumulation (loopPcg.m:100-124 + quadadd.c role).  `f` is a
-    chol.CholFactor or a callable b -> approximate solve."""
+    chol.CholFactor or a callable b -> approximate solve.  Each pass's
+    residual rhs - M hi - M lo is one K1 call on the card (one pass over
+    M)."""
     solve = f if callable(f) else (lambda b: chol_solve(f, b))
     hi = solve(rhs)
     lo = torch.zeros_like(hi)
     for _ in range(iters):
-        r = dd_matvec_residual(M, hi, rhs) - M @ lo
+        r = dd_matvec_residual(M, hi, rhs, lo)
         s, e = two_sum(hi, solve(r))
         hi, lo = s, lo + e
     return hi + lo

@@ -24,7 +24,9 @@ import torch
 import dd_emulation as ddemu
 import sedumi_tpu_torch as st
 import tile_emulation as emu
-from chip_smoke import TILE_TOL, jacobi_compare, nt_like, random_sparse_lp
+from chip_smoke import TILE_TOL, df_call, df_emulated, df_vectors, \
+    jacobi_compare, k1_emulated, k1_operands, nt_like, random_sparse_lp, \
+    same_words
 from sedumi_tpu_torch import chol, ddlinalg, df, ipm, kernels, lax_eigh, \
     linalg_ops, opA, pcg, schur, sparse_chol, sparse_engine, transform
 from sedumi_tpu_torch.examples import load_example
@@ -239,6 +241,100 @@ def test_df_gemv_kernels(cuda, rows, n):
         c = (3 * L + 30) + ((D + k) * (D + k + 2) + 7)
         assert bool(torch.all((got - want).abs() <= c * 2.0**-48 * S)), fn
         assert float(((got - exact).abs() / S).max()) < 1e-12, fn
+
+
+# ------------------------------------ K1 and K11 against their emulation
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m,n,view", [
+    (1, 1, None), (7, 7, None), (123, 123, None), (174, 174, None),
+    (666, 666, None), (7, 1, None), (124, 2383, None), (123, 123, "offset"),
+    (174, 123, "stride"), (7, 1, "offset")])
+def test_gemv_dd_residual_matches_emulation(cuda, m, n, view, dtype):
+    """K1 and K1-f32 bit for bit their emulation (tests/gemv_emulation.py)
+    with and without lo, at rows on and off 16-byte boundaries; a second
+    call gives the same bits; a fused call is one launch."""
+    name = "dd_matvec_residual" + ("" if dtype == torch.float64 else "_f32")
+    M, v, rhs, lo = k1_operands(m, n, dtype, m + n, cuda, view)
+    for low in (None, lo):
+        n0 = kernels.LAUNCHES[name]
+        got = pcg.dd_matvec_residual(M, v, rhs, low)
+        assert kernels.LAUNCHES[name] == n0 + 1
+        assert same_words(got, k1_emulated(M, v, rhs, low))
+        assert same_words(got, pcg.dd_matvec_residual(M, v, rhs, low))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gemv_refine_solve_dd_one_launch_a_pass(cuda, dtype):
+    """refine_solve_dd: one K1 launch a pass and no product with M beside
+    it (its lo term is summed in the kernel's pass over M); the result is
+    the passes written out with the fused call."""
+    from torch.overrides import TorchFunctionMode
+
+    name = "dd_matvec_residual" + ("" if dtype == torch.float64 else "_f32")
+    M0, _, rhs, _ = k1_operands(174, 174, dtype, 3, cuda)
+    M = M0 @ M0.T + 174 * torch.eye(174, dtype=dtype, device=cuda)
+    f = chol.chol_factor(M, 0.0)
+
+    def solve(b):
+        return chol.chol_solve(f, b)
+
+    products = []
+
+    class Count(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if any(a is M for a in args) and func in (
+                    torch.Tensor.__matmul__, torch.matmul, torch.mv,
+                    torch.Tensor.matmul, torch.Tensor.mv, torch.addmv):
+                products.append(func)
+            return func(*args, **(kwargs or {}))
+
+    n0 = kernels.LAUNCHES[name]
+    with Count():
+        x = pcg.refine_solve_dd(M, solve, rhs, iters=3)
+    assert kernels.LAUNCHES[name] == n0 + 3 and not products
+    hi = solve(rhs)
+    lo = torch.zeros_like(hi)
+    for _ in range(3):
+        s, e = pcg.two_sum(hi, solve(pcg.dd_matvec_residual(M, hi, rhs,
+                                                            lo)))
+        hi, lo = s, lo + e
+    assert same_words(x, hi + lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,view", [
+    (1, 1, None), (7, 7, None), (121, 400, None), (124, 2383, None),
+    (124, 2383, "offset"), (3, 130, "offset"), (5, 9000, None),
+    (1001, 65536, None)])
+def test_gemv_df_matches_emulation(cuda, rows, n, view):
+    """K11's df_matvec and df_vecmat bit for bit their emulation (tests/
+    gemv_emulation.py) at the wrapper's slab plans, on rows on and off
+    16-byte boundaries; a second call gives the same bits (the slab
+    tickets are back at zero)."""
+    g = torch.Generator().manual_seed(rows + n)
+    A = torch.randn(rows, n, generator=g, dtype=torch.float64)
+    pair = df.df_split64(A)
+    if view == "offset":
+        Ah, Al = (torch.empty(rows * n + 1, dtype=torch.float32,
+                              device=cuda)[1:].view(rows, n)
+                  for _ in range(2))
+        Ah.copy_(pair[0])
+        Al.copy_(pair[1])
+    else:
+        Ah, Al = (t.to(cuda) for t in pair)
+    for k, fn in enumerate(("df_matvec", "df_vecmat")):
+        xh, xl = df_vectors(n if fn == "df_matvec" else rows, k, cuda)
+        n0 = kernels.LAUNCHES[fn]
+        got = df_call(fn, Ah, Al, xh, xl)
+        assert kernels.LAUNCHES[fn] == n0 + 1
+        want = df_emulated(fn, Ah, Al, xh, xl)
+        again = df_call(fn, Ah, Al, xh, xl)
+        for a, b, c in zip(got, want, again):
+            assert same_words(a, b) and same_words(a, c), fn
 
 
 def solve_nb_mixed(device):
