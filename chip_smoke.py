@@ -33,8 +33,13 @@
    step), and the card's least time (bound) for the work; K1 and K1-f32
    also at the path's orders 174, 666 and 948, alone, fused with the
    refinement's lo term and as the three-call line it replaces, and K11
-   on socp-dense's and nb's operators and at [1001, 65536].  K8-K10
-   and their f32 builds follow the sparse paths (4., 5.), on their plans.
+   on socp-dense's and nb's operators and at [1001, 65536].  K2 and
+   K2-f32 are timed at arch0's, trto3's and OH's COO buckets (with K2's
+   least work, the needed entries, and the earlier design's whole blocks
+   as bounds), K3 and K3-f32 at the path's orders 124 and 3 (K3_ORDERS),
+   K4 at the dd64 path's shapes (K4_SHAPES), with its launches per call
+   site over one control07 dd64 prepare (at most 17).  K8-K10 and their
+   f32 builds follow the sparse paths (4., 5.), on their plans.
 2. Dense path: sedumi_tpu_torch.sedumi() on all six bundled examples at
    full size (quantum, nb, arch0, control07, trto3, OH), plus nb with one
    redundant all-zero constraint (its Schur complement is singular, so
@@ -78,8 +83,10 @@
    sparse engine and the f32 phase and launch K8-f32, K9-f32 and K10-f32;
    sdp1200 must launch K2-f32 and K12-f32, lp900+3dense K3-f32.  All but
    lp20k and the 'float32' solve are gated as in 4.
-   Then K8-K10 and K2's group layout are held against their plain twins
-   on the plans the f64 solves built (LP 20k, SDP 5k, SDP 1200), and
+   Then K2's pair entry (the sparse engine's PSD pair values, f64 and
+   f32, timed) is held against its plain twin on the SDP 1200 and SDP 5k
+   plans, K8-K10 on the plans the f64 solves built (LP 20k, SDP 5k,
+   SDP 1200), and
    K8-f32 to K10-f32 on f32 storage of the same plans; K9 and K10 must
    repeat bit for bit, K10 take two launches a solve, and K10 is timed on
    each plan; K9's work at each plan's widest level is printed.
@@ -316,53 +323,157 @@ def k1_shape_times(dtype, dev) -> dict:
     return out
 
 
-def check_psd_coo(dev, gen):
-    """K2 on arch0's COO bucket (the port's build_coo_aop) and W = R R'
-    from a random well-conditioned R."""
-    from sedumi_tpu_torch import kernels, transform
+def dense_case(name, dev, seed=7, dtype=torch.float64):
+    """(CooAOp, NT scaling at a random interior point) of a bundled
+    example, as the dense engine builds them, in `dtype`."""
+    from sedumi_tpu_torch import transform
     from sedumi_tpu_torch.examples import load_example
     from sedumi_tpu_torch.opA import build_coo_aop
     from sedumi_tpu_torch.params import Pars
+
+    ex = load_example(name)
+    prob = transform.pretransfo(ex.At, ex.b, ex.c, ex.K, Pars(fid=0))
+    aop = build_coo_aop(prob.At, prob.c, prob.layout, device=dev,
+                        dtype=dtype)
+    meta = dict(nl=aop.Al.shape[1], q_shapes=aop.q_shapes,
+                s_shapes=[(mt[1], mt[2]) for mt in aop.s_meta])
+    S = interior_scaling(meta, dev, np.random.default_rng(seed))
+    S = type(S)(*[v.to(dtype) if isinstance(v, torch.Tensor)
+                  else tuple(x.to(dtype) for x in v) for v in S])
+    return aop, S
+
+
+def launch_key(fn, prefix: str):
+    """(fn(), the kernels.VARIANT_LAUNCHES key, "name@shape", of the one
+    launch it made)."""
+    from sedumi_tpu_torch import kernels
+
+    before = dict(kernels.VARIANT_LAUNCHES)
+    out = fn()
+    keys = [k for k, v in kernels.VARIANT_LAUNCHES.items()
+            if k.startswith(prefix + "@") and v != before.get(k, 0)]
+    if len(keys) != 1:
+        fail(f"{prefix}: expected one launch, counted {keys}")
+    return out, keys[0]
+
+
+# K2 at the dense path's COO buckets (arch0: d 161, G 175, pad2 36;
+# trto3: d 321, G 545, pad2 16; OH's two), and the sparse engine's pair
+# values on the SDP plans of the sparse path
+K2_BUCKETS = ("arch0", "trto3", "OH_2Pi_STO-6GN9r12g1T2")
+K2_PAIR_PLANS = ("sdp1200", "sdp5k")
+
+
+def k2_buckets(dev, dtype):
+    """(label, CooAOp, bucket index) of every COO PSD bucket of
+    K2_BUCKETS, built in `dtype`."""
+    for label in K2_BUCKETS:
+        aop, _ = dense_case(label, dev, dtype=dtype)
+        bi = [i for i, mt in enumerate(aop.s_meta) if mt[0] == "coo"]
+        if not bi:
+            fail(f"{label} has no COO PSD bucket")
+        for i in bi:
+            yield label, aop, i
+
+
+def k2_coo_work(part, meta, mp1, size) -> dict:
+    """K2's least work on a COO bucket: the needed entries' fmas (2 sum_g
+    pad2 |U_blk(g)|) and the gather's (2 T mp1) flops, beside the whole
+    blocks' (2 G pad2 d^2 + 2 T mp1) of the earlier design; bytes: W, the
+    group arrays, b_val and the index arrays once, and M."""
+    rep, k, d, G, pad2, T = meta
+    cpu = {key: v.cpu().numpy() for key, v in part.items()}
+    ch = cpu["ch"]
+    per_blk = np.zeros(k)
+    for c in range(ch.shape[0] - 1):
+        per_blk[cpu["it"][ch[c, 0], 0] // d] += ch[c + 1, 1] - ch[c, 1]
+    flops = 2.0 * pad2 * float(per_blk[cpu["g_blk"]].sum()) \
+        + 2.0 * T * mp1
+    full = 2.0 * G * pad2 * d * d + 2.0 * T * mp1
+    n_u = cpu["u_e"].size
+    nbytes = size * (k * d * d + G * pad2 + T + mp1 * mp1) \
+        + 8.0 * (2 * G * pad2 + mp1 + 1) \
+        + 4.0 * (T + n_u + cpu["it"].size + cpu["ch"].size + mp1 * k)
+    return dict(flops=flops, flops_full=full, nbytes=nbytes, n_u=n_u)
+
+
+def check_psd_coo(dev, gen, dtype=torch.float64):
+    """K2 (K2-f32 for dtype f32) at the dense path's COO buckets (the
+    port's build_coo_aop, W = R R' from a random well-conditioned R): one
+    launch a call, against the plain version (f64: within 1e-12 of
+    max|M|; f32: each order is within gamma_N sum|terms| of the exact
+    value, N = pad2 + Tmax + 3 with Tmax the longest row of the gather,
+    so within 2 N u M_abs, M_abs the same function of |W|, |gv| and
+    |b_val| in f64); times each bucket (events, graph replay) beside the
+    plain version and the bound (K2's least work and the earlier design's
+    whole blocks)."""
+    from sedumi_tpu_torch import kernels
     from sedumi_tpu_torch.schur import _psd_contrib_coo_kernel, \
         _psd_contrib_coo_plain, psd_gram
 
-    ex = load_example("arch0")
-    prob = transform.pretransfo(ex.At, ex.b, ex.c, ex.K, Pars(fid=0))
-    aop = build_coo_aop(prob.At, prob.c, prob.layout, device=dev)
-    bi = [i for i, meta in enumerate(aop.s_meta) if meta[0] == "coo"]
-    if not bi:
-        fail("arch0 has no COO PSD bucket (expected one, opA.py:251)")
-    part, (rep, k, d, G, pad2, T) = aop.s_parts[bi[0]], aop.s_meta[bi[0]]
-    mp1 = aop.m + 1
-    r = (torch.randn(k, d, d, generator=gen, dtype=torch.float64) / d ** 0.5
-         + torch.eye(d, dtype=torch.float64)).to(dev)
-    W = psd_gram(r)
-    n0 = kernels.LAUNCHES["psd_contrib_coo"]
-    M_k = _psd_contrib_coo_kernel(part, k, d, G, pad2, mp1, W)
-    torch.cuda.synchronize()
-    if kernels.LAUNCHES["psd_contrib_coo"] != n0 + 1:
-        fail("_psd_contrib_coo did not launch its kernels")
-    M_p = _psd_contrib_coo_plain(part, k, d, G, pad2, mp1, W)
-    err = float(torch.abs(M_k - M_p).max())
-    scale = float(torch.abs(M_p).max())
-    print(f"K2 psd_contrib_coo arch0 (k={k} d={d} G={G} pad2={pad2} T={T} "
-          f"m+1={mp1}): max|M|={scale:.3e} max err={err:.3e} "
-          f"(tol 1e-12*max|M|)", flush=True)
-    if not err <= 1e-12 * scale:
-        fail("psd_contrib_coo kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: _psd_contrib_coo_kernel(part, k, d, G, pad2, mp1,
-                                                 W), 50)
-    plain = cuda_ms(lambda: _psd_contrib_coo_plain(part, k, d, G, pad2, mp1,
-                                                   W), 5)
-    flops = 2.0 * G * pad2 * d * d + 2.0 * T * mp1
-    nbytes = 8.0 * (k * d * d + 4 * G * pad2 + 2 * G + 3 * T + mp1 + 1
-                    + mp1 * mp1)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    return dict(name="psd_contrib_coo", route="cuda",
+    f32 = dtype == torch.float32
+    name = "psd_contrib_coo_f32" if f32 else "psd_contrib_coo"
+    size = 4.0 if f32 else 8.0
+    peak = PEAK_F32_PER_S if f32 else PEAK_F64_PER_S
+    shapes, worst = {}, 0.0
+    for label, aop, i in k2_buckets(dev, dtype):
+        part, meta = aop.s_parts[i], aop.s_meta[i]
+        rep, k, d, G, pad2, T = meta
+        mp1 = aop.m + 1
+        r = (torch.randn(k, d, d, generator=gen, dtype=torch.float64)
+             / d ** 0.5 + torch.eye(d, dtype=torch.float64)).to(dtype) \
+            .to(dev)
+        W = psd_gram(r)
+
+        def call():
+            return _psd_contrib_coo_kernel(part, k, d, G, pad2, mp1, W)
+
+        n0 = kernels.LAUNCHES[name]
+        M_k, key = launch_key(call, name)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES[name] != n0 + 1:
+            fail(f"{name} launched more than once a call")
+        M_p = _psd_contrib_coo_plain(part, k, d, G, pad2, mp1, W)
+        err = torch.abs(M_k.double() - M_p.double())
+        if f32:
+            absp = {kk: (v.abs().double() if v.is_floating_point() else v)
+                    for kk, v in part.items()}
+            M_abs = _psd_contrib_coo_plain(absp, k, d, G, pad2, mp1,
+                                           W.abs().double())
+            c = 2 * (pad2 + int(torch.diff(part["b_rowptr"]).max()) + 3)
+            ok = bool(torch.all(err <= c * U32 * M_abs))
+            tol = f"2 N u M_abs, N={c // 2}"
+        else:
+            ok = float(err.max()) <= 1e-12 * float(M_p.abs().max())
+            tol = "1e-12*max|M|"
+        work = k2_coo_work(part, meta, mp1, size)
+        row = dict(ms=cuda_ms(call, 50), graph_ms=graph_ms(call),
+                   plain_ms=cuda_ms(lambda: _psd_contrib_coo_plain(
+                       part, k, d, G, pad2, mp1, W), 3), key=key,
+                   max_abs_err=float(err.max()), U=work["n_u"],
+                   flops=work["flops"], flops_full=work["flops_full"])
+        row["bound_ms"], row["bound_by"] = bound_ms(work["nbytes"],
+                                                    work["flops"], peak)
+        row["bound_full_ms"], row["bound_full_by"] = bound_ms(
+            work["nbytes"], work["flops_full"], peak)
+        desc = f"{label} bucket {i} (k={k} d={d} G={G} pad2={pad2} T={T} " \
+            f"m+1={mp1})"
+        print(f"K2 {name} {desc}: max|M|={float(M_p.abs().max()):.3e} max "
+              f"err={float(err.max()):.3e} (tol {tol}) "
+              + json.dumps(row), flush=True)
+        if not ok:
+            fail(f"{name} kernel disagrees with its plain version on "
+                 f"{label}")
+        shapes[desc] = row
+        worst = max(worst, float(err.max()))
+        del M_p
+    first = next(iter(shapes.values()))
+    return dict(name=name, route="cuda",
                 source="sedumi_tpu_torch/csrc/psd_coo.cu",
-                replaces="sedumi_tpu/schur.py:60",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                replaces="sedumi_tpu/schur.py:60", max_abs_err=worst,
+                ms=first["ms"], graph_ms=first["graph_ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=None, shapes=shapes)
 
 
 def indefinite_matrix(m: int, gen) -> torch.Tensor:
@@ -378,6 +489,57 @@ def indefinite_matrix(m: int, gen) -> torch.Tensor:
     for j in range(25, m, 41):      # add, then skip
         M[j, j] = -1.0
     return M
+
+
+# K3 at the path's orders: nb+zero-row's singular ADA (m = 124) and
+# lp900+3dense's Woodbury capacitance (m = 3)
+K3_ORDERS = ((124, "nb+zero-row ADA"), (3, "lp900+3dense capacitance"))
+
+
+def k3_shape_times(dtype, dev, gen) -> dict:
+    """K3 (K3-f32) at K3_ORDERS: against the plain version (f32 bit for
+    bit, f64 within 1e-12 of max|L|, |d|), timed (events, graph replay)
+    beside it and the bound."""
+    from sedumi_tpu_torch.chol import ldl_masked, ldl_masked_plain
+
+    f32 = dtype == torch.float32
+    name = "ldl_masked_f32" if f32 else "ldl_masked"
+    size = 4.0 if f32 else 8.0
+    out = {}
+    for m, label in K3_ORDERS:
+        if m > 3:
+            M = indefinite_matrix(m, gen)
+        else:
+            B = torch.randn(m, m, generator=gen, dtype=torch.float64)
+            M = B @ B.T + torch.eye(m, dtype=torch.float64)
+        M = M.to(dtype).to(dev)
+        fk, key = launch_key(lambda: ldl_masked(M), name)
+        fp_ = ldl_masked_plain(M)
+        fin = torch.isfinite(fp_.d)
+        if f32:
+            ok = all(bit_diff(a, b)[0] for a, b in
+                     ((fk.L, fp_.L), (fk.d, fp_.d),
+                      (fk.diagadd, fp_.diagadd)))
+        else:
+            err = max(float(torch.abs(fk.L - fp_.L).max()),
+                      float(torch.abs(fk.d[fin] - fp_.d[fin]).max()))
+            ok = err <= 1e-12 * max(float(torch.abs(fp_.L).max()),
+                                    float(torch.abs(fp_.d[fin]).max()))
+        if not (ok and torch.equal(fk.skip, fp_.skip)):
+            fail(f"{name} disagrees with its plain version at m={m}")
+        keep = (~fp_.skip).cpu().numpy()
+        flops = sum(3.0 * (m - j - 1) * (m - j) / 2 + (m - j - 1)
+                    for j in range(m) if keep[j])
+        row = dict(ms=cuda_ms(lambda: ldl_masked(M), 20),
+                   graph_ms=graph_ms(lambda: ldl_masked(M)),
+                   plain_ms=cuda_ms(lambda: ldl_masked_plain(M), 2,
+                                    warmup=1), key=key)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            size * (2 * m * m + 3 * m) + m, flops,
+            PEAK_F32_PER_S if f32 else PEAK_F64_PER_S)
+        print(f"K3 {name} m={m} ({label}): " + json.dumps(row), flush=True)
+        out[f"m={m} {label}"] = row
+    return out
 
 
 def check_ldl_masked(dev, gen):
@@ -422,7 +584,8 @@ def check_ldl_masked(dev, gen):
                 source="sedumi_tpu_torch/csrc/ldl_masked.cu",
                 replaces="sedumi_tpu/chol.py:95",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None,
+                shapes=k3_shape_times(torch.float64, dev, gen))
 
 
 def wide_matrix(shape, gen) -> torch.Tensor:
@@ -440,52 +603,111 @@ def wide_matrix(shape, gen) -> torch.Tensor:
 
 def bit_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, float]:
     """(bit-identical, max |a - b| over finite entries)."""
-    same = a.shape == b.shape and bool(torch.equal(
-        a.contiguous().view(torch.int64), b.contiguous().view(torch.int64)))
+    ints = torch.int64 if a.element_size() == 8 else torch.int32
+    same = a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(
+        a.contiguous().view(ints), b.contiguous().view(ints)))
     fin = torch.isfinite(a) & torch.isfinite(b)
     err = float(torch.abs(a[fin] - b[fin]).max()) if bool(fin.any()) else 0.0
     return same, err
 
 
-def check_ozaki_split(dev, gen):
-    """K4 on control07's Gram operand B (667 x 16384, per-row scale, and
-    its transpose, which the dd Gram splits per column), on arch0's
-    congruence input (175*161 x 161) and on an R_k (161 x 161, per
-    column): bit for bit against the plain version."""
+# K4 at the dd64 path's shapes: (label, rows, columns, row stride of the
+# view, axis); control07's dd_chol updates are views of its 666 x 666
+# factor (the trailing panel's rows, k = p0 = 48 and 624); R_k, split per
+# column, comes as the transpose of a contiguous matrix (the NT factor's
+# layout), which runs as the row split of that matrix
+K4_SHAPES = (("control07 Gram B", 667, 16384, 16384, -1),
+             ("control07 A_k, T'", 85376, 128, 128, -1),
+             ("arch0 Gram B", 175, 25921, 25921, -1),
+             ("arch0 A_k, T'", 28175, 161, 161, -1),
+             ("control07 dd_chol update p0=48", 618, 48, 666, -1),
+             ("control07 dd_chol update p0=624", 42, 624, 666, -1),
+             ("control07 R_k", 128, 128, 128, 0))
+
+
+def k4_prepare_sites(dev) -> dict:
+    """K4's launches per shape over one control07 dd64 prepare (form_dd
+    and dd_chol of its m x m block at a random interior point)."""
+    from sedumi_tpu_torch import ddengine
     from sedumi_tpu_torch import ddlinalg as dd
     from sedumi_tpu_torch import kernels
 
-    B = wide_matrix((667, 16384), gen).to(dev)
-    Ak = wide_matrix((175 * 161, 161), gen).to(dev)
-    Rk = wide_matrix((161, 161), gen).to(dev)
-    cases = [("B", B, 16384, -1), ("B'", B.T, 16384, 0),
-             ("A_k", Ak, 161, -1), ("R_k", Rk, 161, 0)]
-    worst = 0.0
-    for label, X, k, axis in cases:
-        n0 = kernels.LAUNCHES["ozaki_split"]
-        got = dd.ozaki_split(X, k, axis)
-        torch.cuda.synchronize()
-        if kernels.LAUNCHES["ozaki_split"] != n0 + 1:
-            fail("ozaki_split did not launch its kernel")
-        want = dd.ozaki_split_plain(X, k, axis)
-        for g, w in zip(got, want):
-            same, err = bit_diff(g, w)
-            worst = max(worst, err)
-            if not same:
-                fail(f"ozaki_split kernel differs from its plain version "
-                     f"on {label} (max err {err:.3e})")
-    print(f"K4 ozaki_split: B 667x16384 (both axes), A_k 28175x161, "
-          f"R_k 161x161: bit for bit", flush=True)
-    ms = cuda_ms(lambda: dd.ozaki_split(B, 16384, -1), 50)
-    plain = cuda_ms(lambda: dd.ozaki_split_plain(B, 16384, -1), 10)
-    n = B.numel()
-    # read A once, write three slices; |.|, max, 2 x (add, sub, sub) x 2
-    b_ms, b_by = bound_ms(32.0 * n, 10.0 * n)
+    aop, S = dense_case("control07", dev)
+    before = dict(kernels.VARIANT_LAUNCHES)
+    n0 = kernels.LAUNCHES["ozaki_split"]
+    Mh, Ml = ddengine.form_dd(aop, S, 0.0)
+    dd.dd_chol(Mh[:aop.m, :aop.m], Ml[:aop.m, :aop.m])
+    torch.cuda.synchronize()
+    sites = {k: v - before.get(k, 0)
+             for k, v in kernels.VARIANT_LAUNCHES.items()
+             if k.startswith("ozaki_split@") and v != before.get(k, 0)}
+    total = kernels.LAUNCHES["ozaki_split"] - n0
+    print(f"K4 launches over one control07 dd64 prepare: {total} "
+          + json.dumps(sites), flush=True)
+    if total > 17:
+        fail(f"one control07 dd64 prepare launched K4 {total} times "
+             f"(at most 17: each operand split once)")
+    return dict(total=total, sites=sites)
+
+
+def check_ozaki_split(dev, gen):
+    """K4 at the dd64 path's shapes (K4_SHAPES: the Gram operands, the
+    congruence inputs, dd_chol's trailing panels as views of the factor,
+    an R_k per column as the path lays it out), on B's transpose (split
+    per column, which runs as B's row split) and on a contiguous R_k (the
+    column kernel): bit for bit against the plain version; times each
+    (events, graph replay) beside its bytes bound, and counts K4's
+    launches per call site over one control07 dd64 prepare."""
+    from sedumi_tpu_torch import ddlinalg as dd
+    from sedumi_tpu_torch import kernels
+
+    worst, shapes = 0.0, {}
+    for label, R, C, ld, axis in K4_SHAPES:
+        base = wide_matrix((R * ld,), gen).to(dev)
+        X = base.as_strided((R, C), (ld, 1) if axis == -1 else (1, ld))
+        k = C if axis == -1 else R
+        # B' per column runs as B's row split; R_k contiguous takes the
+        # column kernel
+        cases = [(X, axis)] + ([(X.T, 0)] if label == "control07 Gram B"
+                               else [(X.contiguous(), 0)] if axis == 0
+                               else [])
+        for Y, ax in cases:
+            n0 = kernels.LAUNCHES["ozaki_split"]
+            got, key = launch_key(lambda: dd.ozaki_split(Y, k, ax),
+                                  "ozaki_split")
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["ozaki_split"] != n0 + 1:
+                fail("ozaki_split did not launch its kernel once")
+            for g, w in zip(got, dd.ozaki_split_plain(Y, k, ax)):
+                same, err = bit_diff(g, w)
+                worst = max(worst, err)
+                if not same:
+                    fail(f"ozaki_split kernel differs from its plain "
+                         f"version on {label} (max err {err:.3e})")
+        del got
+        n = R * C
+        row = dict(ms=cuda_ms(lambda: dd.ozaki_split(X, k, axis), 50),
+                   graph_ms=graph_ms(lambda: dd.ozaki_split(X, k, axis)),
+                   key=key)
+        # read A once, write three slices; |.|, max, 2 x (add, sub, sub)
+        row["bound_ms"], row["bound_by"] = bound_ms(32.0 * n, 10.0 * n)
+        row["share"] = row["bound_ms"] / row["graph_ms"]
+        if label == "control07 Gram B":
+            row["plain_ms"] = cuda_ms(
+                lambda: dd.ozaki_split_plain(X, k, axis), 10)
+        print(f"K4 ozaki_split {label} ({R}x{C}, row stride {ld}, axis "
+              f"{axis}): bit for bit " + json.dumps(row), flush=True)
+        shapes[f"{label} {R}x{C}"] = row
+        del base, X
+    first = next(iter(shapes.values()))
     return dict(name="ozaki_split", route="cuda",
                 source="sedumi_tpu_torch/csrc/dd_split.cu",
                 replaces="sedumi_tpu/ddlinalg.py:86",
-                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                max_abs_err=worst, ms=first["ms"],
+                graph_ms=first["graph_ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                library_ms=None, shapes=shapes,
+                prepare_sites=k4_prepare_sites(dev))
 
 
 def check_dd_elem(dev, gen):
@@ -807,6 +1029,7 @@ def check_dd_panel_chol(dev, gen):
 # --------------------------------------------------------------------------
 
 U32 = 2.0**-24     # f32 unit roundoff
+EPS64 = 2.0**-53   # f64 unit roundoff
 UDF = 2.0**-48     # double-float resolution
 
 
@@ -862,65 +1085,6 @@ def check_dd_residual_f32(dev, gen):
                 shapes=k1_shape_times(torch.float32, dev))
 
 
-def check_psd_coo_f32(dev, gen):
-    """K2-f32 on arch0's COO bucket, built at f32 as the ladder's f32 and
-    hybrid phases build it.  Both versions form the same sums of products
-    in f32 in different orders: each is within gamma_N sum|terms| of the
-    exact value, N = pad2 + Tmax + 3 (Tmax the longest row of the gather),
-    so the tolerance is 2 N u M_abs, with M_abs the same function of |W|,
-    |gv| and |b_val| in f64."""
-    from sedumi_tpu_torch import kernels, transform
-    from sedumi_tpu_torch.examples import load_example
-    from sedumi_tpu_torch.opA import build_coo_aop
-    from sedumi_tpu_torch.params import Pars
-    from sedumi_tpu_torch.schur import _psd_contrib_coo_kernel, \
-        _psd_contrib_coo_plain, psd_gram
-
-    ex = load_example("arch0")
-    prob = transform.pretransfo(ex.At, ex.b, ex.c, ex.K, Pars(fid=0))
-    aop = build_coo_aop(prob.At, prob.c, prob.layout, device=dev,
-                        dtype=torch.float32)
-    bi = [i for i, meta in enumerate(aop.s_meta) if meta[0] == "coo"][0]
-    part, (rep, k, d, G, pad2, T) = aop.s_parts[bi], aop.s_meta[bi]
-    mp1 = aop.m + 1
-    r = (torch.randn(k, d, d, generator=gen, dtype=torch.float64) / d ** 0.5
-         + torch.eye(d, dtype=torch.float64)).to(torch.float32).to(dev)
-    W = psd_gram(r)
-    n0 = kernels.LAUNCHES["psd_contrib_coo_f32"]
-    M_k = _psd_contrib_coo_kernel(part, k, d, G, pad2, mp1, W)
-    torch.cuda.synchronize()
-    if kernels.LAUNCHES["psd_contrib_coo_f32"] != n0 + 1:
-        fail("_psd_contrib_coo did not launch its f32 kernels")
-    M_p = _psd_contrib_coo_plain(part, k, d, G, pad2, mp1, W)
-    absp = {key: (v.abs().double() if v.is_floating_point() else v)
-            for key, v in part.items()}
-    M_abs = _psd_contrib_coo_plain(absp, k, d, G, pad2, mp1,
-                                   W.abs().double())
-    tmax = int(torch.diff(part["b_rowptr"]).max())
-    c = 2 * (pad2 + tmax + 3)
-    err = torch.abs(M_k.double() - M_p.double())
-    ratio = float((err / (c * U32 * M_abs).clamp_min(1e-300)).max())
-    print(f"K2-f32 psd_contrib_coo arch0 (G={G} pad2={pad2} Tmax={tmax}): "
-          f"max|M|={float(M_p.abs().max()):.3e} max err="
-          f"{float(err.max()):.3e} worst err/tol={ratio:.3e} (c={c})",
-          flush=True)
-    if not bool(torch.all(err <= c * U32 * M_abs)):
-        fail("psd_contrib_coo f32 kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: _psd_contrib_coo_kernel(part, k, d, G, pad2, mp1,
-                                                 W), 50)
-    plain = cuda_ms(lambda: _psd_contrib_coo_plain(part, k, d, G, pad2, mp1,
-                                                   W), 5)
-    flops = 2.0 * G * pad2 * d * d + 2.0 * T * mp1
-    nbytes = 4.0 * (k * d * d + G * pad2 + T + mp1 * mp1) \
-        + 8.0 * (3 * G * pad2 + 2 * G + 2 * T + mp1 + 1)
-    b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32_PER_S)
-    return dict(name="psd_contrib_coo_f32", route="cuda",
-                source="sedumi_tpu_torch/csrc/psd_coo.cu",
-                replaces="sedumi_tpu/schur.py:60",
-                max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
-
-
 def check_ldl_masked_f32(dev, gen):
     """K3-f32 on the indefinite 174 x 174 matrix of the f64 check, in f32:
     masks, pivots and L bit for bit against the plain version."""
@@ -958,7 +1122,8 @@ def check_ldl_masked_f32(dev, gen):
                 source="sedumi_tpu_torch/csrc/ldl_masked.cu",
                 replaces="sedumi_tpu/chol.py:95",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None,
+                shapes=k3_shape_times(torch.float32, dev, gen))
 
 
 def check_df_gemv(dev, gen):
@@ -1834,7 +1999,7 @@ def check_panel_kernels(dev, gen):
 
 
 # --------------------------------------------------------------------------
-# sparse-engine kernels (K8-K10, and K2's group layout), on the plans the
+# sparse-engine kernels (K8-K10, and K2's pair entry), on the plans the
 # sparse path built
 # --------------------------------------------------------------------------
 
@@ -2255,33 +2420,62 @@ def check_library_rows(dev, gen, rng, plans):
     return rows
 
 
-def check_psd_outer_groups(plan, dev, rng):
-    """K2's group build with the sparse engine's output slots (0..G-1) on
-    the SDP plan's largest bucket, against the plain version (within
-    1e-12 of max|B~|)."""
+def check_psd_pairs(plans, dev, rng, rows):
+    """K2's sparse-engine entry (one value a gathered pair) on the SDP
+    plans' largest bucket, f64 and f32: against the plain version (whole
+    groups, then the gather) within 2 (pad2 + 2) u of the same function
+    of |W|, |gv| and |sp_val|; timed (events, graph replay) beside it and
+    the bound, into the K2 and K2-f32 rows' shapes."""
     from sedumi_tpu_torch import schur
     from sedumi_tpu_torch import sparse_engine as se
 
-    arrays, meta = plan
-    aop = se.make_sparse_lq_op(arrays, meta, device=dev)
-    S = interior_scaling(meta, dev, rng)
-    bi = max(range(len(meta["s_G"])), key=lambda i: meta["s_G"][i])
-    G = meta["s_G"][bi]
-    a = aop.arrays
-    W = schur.psd_gram(S.s_r[bi])
-    args = (W, a["sg_blk"][bi], a["sg_p"][bi], a["sg_q"][bi], a["sg_v"][bi],
-            torch.arange(G, device=dev), G)
-    got = schur._psd_outer_kernel(*args)
-    want = schur.psd_outer_plain(*args)
-    err = float(torch.abs(got - want).max())
-    scale = float(torch.abs(want).max())
-    print(f"K2 group layout, SDP bucket {bi} (G={G}, d={W.shape[-1]}): "
-          f"max|B~|={scale:.3e} max err={err:.3e} (tol 1e-12*max|B~|)",
-          flush=True)
-    if not err <= 1e-12 * scale:
-        fail("psd_outer kernel disagrees with its plain version on the "
-             "sparse engine's group layout")
-    return err
+    for label in K2_PAIR_PLANS:
+        arrays, meta = plans[label]
+        bi = max(range(len(meta["s_G"])), key=lambda i: meta["s_G"][i])
+        for dtype in (torch.float64, torch.float32):
+            f32 = dtype == torch.float32
+            name = "psd_contrib_coo_f32" if f32 else "psd_contrib_coo"
+            aop = se.make_sparse_lq_op(arrays, meta, dtype=dtype,
+                                       device=dev)
+            S = interior_scaling(meta, dev, rng)
+            W = schur.psd_gram(S.s_r[bi]).to(dtype)
+            a = aop.arrays
+            args = [a[key][bi] for key in ("sg_blk", "sg_p", "sg_q",
+                                           "sg_v", "sp_g", "sp_loc",
+                                           "sp_val")]
+
+            def call():
+                return schur.psd_pair_values(W, *args)
+
+            got, key = launch_key(call, name)
+            want = schur.psd_pair_values_plain(W, *args)
+            absa = [x.abs().double() if x.is_floating_point() else x
+                    for x in args]
+            vabs = schur.psd_pair_values_plain(W.abs().double(), *absa)
+            G, pad2 = args[1].shape
+            k, d = meta["s_shapes"][bi]
+            n = got.numel()
+            u = U32 if f32 else EPS64
+            err = torch.abs(got.double() - want.double())
+            if not bool(torch.all(err <= 2 * (pad2 + 2) * u * vabs)):
+                fail(f"{name} pair values disagree with the plain version "
+                     f"on {label}")
+            size = 4.0 if f32 else 8.0
+            row = dict(ms=cuda_ms(call, 50), graph_ms=graph_ms(call),
+                       plain_ms=cuda_ms(lambda: schur.psd_pair_values_plain(
+                           W, *args), 10), key=key,
+                       max_abs_err=float(err.max()), pairs=n)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                size * (2 * n + k * d * d + G * pad2)
+                + 8.0 * (2 * n + 2 * G * pad2 + G),
+                2.0 * n * pad2 + n, PEAK_F32_PER_S if f32 else
+                PEAK_F64_PER_S)
+            desc = f"{label} pairs (bucket {bi}: k={k} d={d} G={G} " \
+                f"pad2={pad2})"
+            print(f"K2 {name} {desc}: " + json.dumps(row), flush=True)
+            krow = next(r for r in rows if r["name"] == name)
+            krow["shapes"][desc] = row
+            krow["max_abs_err"] = max(krow["max_abs_err"], float(err.max()))
 
 
 # --------------------------------------------------------------------------
@@ -2800,7 +2994,8 @@ def main() -> None:
             check_dd_elem(dev, gen), check_dd_gemv(dev, gen),
             check_dd_chol_solve(dev, gen),
             check_dd_panel_chol(dev, gen), check_dd_residual_f32(dev, gen),
-            check_psd_coo_f32(dev, gen), check_ldl_masked_f32(dev, gen)]
+            check_psd_coo(dev, gen, torch.float32),
+            check_ldl_masked_f32(dev, gen)]
     rows += check_df_gemv(dev, gen)
     rows += check_jacobi(dev, gen)
     rows += check_panel_kernels(dev, gen)
@@ -2934,9 +3129,7 @@ def main() -> None:
 
     # the sparse engine's kernels at the plans' shapes
     rng = np.random.default_rng(20261016)
-    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
-                                 check_psd_outer_groups(plans["sdp5k"], dev,
-                                                        rng))
+    check_psd_pairs(plans, dev, rng, rows)
     tile_plans = {k: plans[k] for k in ("lp20k", "sdp5k", "sdp1200")}
     rows += check_tile_kernels(tile_plans, dev, gen, rng)
     rows += check_tile_kernels(tile_plans, dev, gen, rng,
@@ -2947,6 +3140,10 @@ def main() -> None:
     for row in rows:
         count = row.pop("count", row["name"])
         row["launches"] = total.get(count, 0)
+        if row["name"].startswith(("psd_contrib_coo", "ldl_masked",
+                                   "ozaki_split")):
+            for shape in row["shapes"].values():   # launches per shape
+                shape["launches"] = total.get(shape["key"], 0)
         if row["launches"] == 0 and count.split(":")[0] not in OFF_PATH:
             fail(f"kernel {row['name']} ({count}) never launched on the "
                  f"path")
@@ -2957,7 +3154,7 @@ def main() -> None:
     # and, where a check gives them, its graph-replay and column-0 times
     extra = ("graph_ms", "library_graph_ms", "library", "column0_ms",
              "column0_graph_ms", "column0_bound_ms", "panels_ms",
-             "panels_graph_ms", "shapes")
+             "panels_graph_ms", "shapes", "prepare_sites")
     print(json.dumps({"kernels": [
         {k: row[k] for k in keys + extra if k in keys or k in row}
         for row in rows]}), flush=True)

@@ -2,9 +2,9 @@
 kernels, on one card.
 
     python3 parent_bench.py --parent DIR
-                            [--cases tiles,panels,dd,k13,gemv,solves]
-                            [--plans lp20k,sdp5k,sdp1200]
-                            [--problems arch0,control07] [--repeat N]
+        [--cases tiles,panels,dd,k13,gemv,schur,twins,solves]
+        [--plans lp20k,sdp5k,sdp1200]
+        [--problems arch0,control07] [--repeat N]
 
 DIR holds another checkout of this repository (for example the parent
 commit, unpacked with git archive).  Its sedumi_tpu_torch is loaded under
@@ -47,6 +47,14 @@ mean and runs.  The cases (all by default):
   on socp-dense's and nb's double-float operators ([121, 400], [124,
   2379]) and at [1001, 65536], beside torch.mv on the f64 operator, the
   builds within their bounds of each other;
+* schur: K2 at the dense path's COO buckets (arch0, trto3; f64 and f32)
+  and the sparse engine's PSD pair values on the sdp1200 and sdp5k plans
+  (the earlier build: its whole-group build, then the gather and the
+  product), K4 at the dd64 path's shapes (chip_smoke.K4_SHAPES), and
+  form_dd and dd_chol at control07 and arch0 with each build's K4
+  launches, the builds bit for bit equal everywhere;
+* twins: arch0 and control07 solved by each build with deterministic
+  algorithms, x and y bit for bit equal;
 * solves: whole solves of --problems (bundled examples) under 'auto' and
   'mixed' (a warm-up solve each first), the turns repeated --repeat
   times: each build's wall, iterations, phases with their walls, rel and
@@ -558,10 +566,121 @@ def gemv_case(old, dev, args) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ schur
+
+
+def schur_case(old, dev, args) -> dict:
+    """K2 at the dense path's COO buckets (f64 and f32) and the sparse
+    engine's pair values on the SDP plans (the earlier build: whole
+    groups, then the gather and the product), K4 at the dd64 path's
+    shapes, and form_dd and dd_chol at control07 and arch0 with their K4
+    launches: each pair of builds bit for bit equal."""
+    import chip_smoke as cs
+    from sedumi_tpu_torch import ddengine, kernels, schur
+    from sedumi_tpu_torch import ddlinalg as dd
+    from sedumi_tpu_torch import sparse_engine as se
+
+    osc, odd, oeng = (old_module(n) for n in ("schur", "ddlinalg",
+                                               "ddengine"))
+    okern = old.kernels
+    gen = torch.Generator().manual_seed(20261018)
+    out = {}
+
+    def same(got):
+        a, b = got["this"], got["earlier"]
+        a = a if isinstance(a, (tuple, list)) else (a,)
+        b = b if isinstance(b, (tuple, list)) else (b,)
+        return all(cs.bit_diff(x, y)[0] for x, y in zip(a, b))
+
+    for dtype in (torch.float64, torch.float32):
+        for label, aop, bi in cs.k2_buckets(dev, dtype):
+            part, (rep, k, d, G, pad2, T) = aop.s_parts[bi], aop.s_meta[bi]
+            mp1 = aop.m + 1
+            r = (torch.randn(k, d, d, generator=gen, dtype=torch.float64)
+                 / d ** 0.5 + torch.eye(d, dtype=torch.float64)).to(dtype) \
+                .to(dev)
+            W = schur.psd_gram(r)
+            calls = {"earlier": lambda: osc._psd_contrib_coo_kernel(
+                         part, k, d, G, pad2, mp1, W),
+                     "this": lambda: schur._psd_contrib_coo_kernel(
+                         part, k, d, G, pad2, mp1, W)}
+            if not same({w: c() for w, c in calls.items()}):
+                cs.fail(f"the builds' K2 differ on {label} {dtype}")
+            report(out, f"K2 {label} bucket {bi} {dtype}", turns(calls))
+    plans = {name: plan_of(make, pars) for name, make, pars, _ in
+             cs.SPARSE_SOLVES if name in cs.K2_PAIR_PLANS}
+    rng = np.random.default_rng(20261018)
+    for label, (arrays, meta) in plans.items():
+        bi = max(range(len(meta["s_G"])), key=lambda i: meta["s_G"][i])
+        k, d = meta["s_shapes"][bi]
+        for dtype in (torch.float64, torch.float32):
+            a = se.make_sparse_lq_op(arrays, meta, dtype=dtype,
+                                     device=dev).arrays
+            W = schur.psd_gram(cs.interior_scaling(meta, dev, rng)
+                               .s_r[bi]).to(dtype)
+            g_args = [a[key][bi] for key in ("sg_blk", "sg_p", "sg_q",
+                                             "sg_v")]
+            p_args = [a[key][bi] for key in ("sp_g", "sp_loc", "sp_val")]
+            G = meta["s_G"][bi]
+
+            def earlier():
+                Bg = osc.psd_outer(W, *g_args, torch.arange(G, device=dev),
+                                   G)
+                return Bg.reshape(G, d * d)[p_args[0], p_args[1]] \
+                    * p_args[2]
+
+            calls = {"earlier": earlier,
+                     "this": lambda: schur.psd_pair_values(W, *g_args,
+                                                           *p_args)}
+            if not same({w: c() for w, c in calls.items()}):
+                cs.fail(f"the builds' PSD pair values differ on {label}")
+            report(out, f"K2 pairs {label} {dtype}", turns(calls))
+    for label, R, C, ld, axis in cs.K4_SHAPES:
+        X = cs.wide_matrix((R * ld,), gen).to(dev).as_strided(
+            (R, C), (ld, 1) if axis == -1 else (1, ld))
+        kk = C if axis == -1 else R
+        calls = {"earlier": lambda: odd.ozaki_split(X, kk, axis),
+                 "this": lambda: dd.ozaki_split(X, kk, axis)}
+        if not same({w: c() for w, c in calls.items()}):
+            cs.fail(f"the builds' K4 differ on {label}")
+        report(out, f"K4 {label} {R}x{C}", turns(calls))
+        del X
+    for label in ("control07", "arch0"):
+        aop, S = cs.dense_case(label, dev)
+        m = aop.m
+        runs = {}
+        for who, eng, ddl, kern in (("earlier", oeng, odd, okern),
+                                    ("this", ddengine, dd, kernels)):
+            n0 = kern.LAUNCHES["ozaki_split"]
+            Mh, Ml = eng.form_dd(aop, S, 0.0)
+            n1 = kern.LAUNCHES["ozaki_split"]
+            f = ddl.dd_chol(Mh[:m, :m], Ml[:m, :m])
+            torch.cuda.synchronize()
+            runs[who] = dict(out=(Mh, Ml, f.Lh, f.Ll, f.inv_h, f.inv_l),
+                             form_dd_k4=n1 - n0,
+                             dd_chol_k4=kern.LAUNCHES["ozaki_split"] - n1)
+        if not same({w: r["out"] for w, r in runs.items()}):
+            cs.fail(f"the builds' form_dd or dd_chol differ on {label}")
+        Mh, Ml = runs["this"]["out"][:2]
+        calls = {"earlier": lambda: oeng.form_dd(aop, S, 0.0),
+                 "this": lambda: ddengine.form_dd(aop, S, 0.0)}
+        row = turns(calls, graph=False, reps=3)
+        row["k4_launches"] = {w: r["form_dd_k4"] for w, r in runs.items()}
+        report(out, f"form_dd {label}", row)
+        calls = {"earlier": lambda: odd.dd_chol(Mh[:m, :m], Ml[:m, :m]),
+                 "this": lambda: dd.dd_chol(Mh[:m, :m], Ml[:m, :m])}
+        row = turns(calls, graph=False, reps=3)
+        row["k4_launches"] = {w: r["dd_chol_k4"] for w, r in runs.items()}
+        report(out, f"dd_chol {label}", row)
+        del runs, aop, S
+        torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------------- solves
 
 
-def solve(pkg, name: str, pars: dict) -> dict:
+def solve(pkg, name: str, pars: dict, xy: bool = False) -> dict:
     from sedumi_tpu_torch.examples import load_example
 
     ex = load_example(name)
@@ -573,9 +692,43 @@ def solve(pkg, name: str, pars: dict) -> dict:
     wall = time.time() - t0
     cx = float(np.real(np.vdot(ex.c, x)))
     by = float(np.real(np.vdot(ex.b, y)))
-    return dict(wall_s=wall, iter=info["iter"], numerr=info["numerr"],
-                rel=max(abs(cx - ex.optval), abs(by - ex.optval))
-                / abs(ex.optval), phases=info["phases"])
+    out = dict(wall_s=wall, iter=info["iter"], numerr=info["numerr"],
+               rel=max(abs(cx - ex.optval), abs(by - ex.optval))
+               / abs(ex.optval), phases=info["phases"])
+    if xy:
+        out.update(x=x, y=y)
+    return out
+
+
+def twins_case(old, dev, args) -> dict:
+    """arch0 and control07 ('auto': f64, then dd64) by each build with
+    deterministic algorithms (index_add_ in order, as
+    chip_smoke.check_dd64_twins): x and y must agree bit for bit, and with
+    them the phases' iterations and rel."""
+    import warnings
+
+    import sedumi_tpu_torch as st
+
+    import chip_smoke as cs
+
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for name in ("arch0", "control07"):
+                runs = {who: solve(pkg, name, {}, xy=True)
+                        for who, pkg in (("earlier", old), ("this", st))}
+                e, t = runs["earlier"], runs["this"]
+                if not (np.array_equal(e["x"], t["x"])
+                        and np.array_equal(e["y"], t["y"])):
+                    cs.fail(f"{name} deterministic: the builds land apart")
+                report(out, f"{name} deterministic", {
+                    who: {k: v for k, v in r.items() if k not in ("x", "y")}
+                    for who, r in runs.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
 
 
 def solves_case(old, dev, args) -> dict:
@@ -604,7 +757,8 @@ def solves_case(old, dev, args) -> dict:
 
 
 CASES = {"tiles": tiles_case, "panels": panels_case, "dd": dd_case,
-         "k13": k13_case, "gemv": gemv_case, "solves": solves_case}
+         "k13": k13_case, "gemv": gemv_case, "schur": schur_case,
+         "twins": twins_case, "solves": solves_case}
 
 
 def main() -> None:

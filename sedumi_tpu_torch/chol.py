@@ -149,7 +149,7 @@ def ldl_masked(M: torch.Tensor, canceltol: float = 1e-12, maxu: float = 5e5,
                    skip.data_ptr(), diagadd.data_ptr(), absd.data_ptr(),
                    col.data_ptr(), m, float(canceltol), float(maxu),
                    float(abstol), int(bool(skip_pivots)))
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name, f"{m}")
     return LdlFactor(L=L, d=d, skip=skip.bool(), diagadd=diagadd)
 
 

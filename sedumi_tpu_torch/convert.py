@@ -14,7 +14,7 @@ import torch
 from .cones import Layout
 from .ipm import IPMState
 from .nt import Scaling
-from .opA import CooAOp, DenseAOp
+from .opA import CooAOp, DenseAOp, needed_entries
 from .structs import F64, ConeVec
 
 
@@ -69,7 +69,8 @@ def aop_from_numpy(Al, Aq, s_parts, q_shapes, s_meta,
     """The port's CooAOp from the reference CooAOp's arrays: Al, Aq list,
     s_parts (list of dicts of arrays with the reference's keys), q_shapes
     and s_meta.  The CSR row pointer the port's Schur gather needs is
-    derived from the sorted b_row, and the B~ slots from g_row and g_blk."""
+    derived from the sorted b_row, the B~ slots from g_row and g_blk, and
+    K2's needed-entry arrays (opA.needed_entries) from b_row and b_loc."""
     parts = []
     for part, meta in zip(s_parts, s_meta):
         out = {}
@@ -83,6 +84,12 @@ def aop_from_numpy(Al, Aq, s_parts, q_shapes, s_meta,
                                                  np.arange(mp1 + 1)),
                                  device, torch.int64)
             out["g_slot"] = out["g_row"] * meta[1] + out["g_blk"]
+            for key, a in needed_entries(
+                    part["b_row"], part["b_loc"],
+                    np.asarray(part["g_row"]) * meta[1]
+                    + np.asarray(part["g_blk"]),
+                    mp1, meta[1], meta[2]).items():
+                out[key] = _t(a, device, torch.int32)
         parts.append(out)
     return CooAOp(Al=_t(Al, device), Aq=[_t(a, device) for a in Aq],
                   s_parts=parts, q_shapes=q_shapes, s_meta=s_meta)

@@ -71,12 +71,13 @@ def form_dd(aop: CooAOp, S: Scaling, reg: float):
         Bl = torch.empty_like(Bh)
         for kk in range(k):
             Ak = a4[:, kk].reshape(mp1 * d_, d_)
-            Th, Tl = dd.dd_gemm(Ak, None, r[kk], None)
+            Rs = dd.ozaki_split(r[kk], d_, axis=0)   # R_k split once
+            Th, Tl = dd.dd_gemm(Ak, None, r[kk], None, Bs=Rs)
             # U = R' T computed as (T' R)', T' per row block
             TTh = Th.reshape(mp1, d_, d_).transpose(1, 2).reshape(-1, d_)
             TTl = Tl.reshape(mp1, d_, d_).transpose(1, 2).reshape(-1, d_)
             del Th, Tl
-            Uh, Ul = dd.dd_gemm(TTh, TTl, r[kk], None)
+            Uh, Ul = dd.dd_gemm(TTh, TTl, r[kk], None, Bs=Rs)
             del TTh, TTl
             cols = slice(kk * dd2, (kk + 1) * dd2)
             Bh[:, cols] = Uh.reshape(mp1, d_, d_).transpose(1, 2) \
@@ -85,7 +86,10 @@ def form_dd(aop: CooAOp, S: Scaling, reg: float):
                 .reshape(mp1, dd2)
             del Uh, Ul
         del a4
-        acc(*dd.dd_gemm(Bh, Bl, Bh.T, Bl.T))
+        # the Gram's B' split per column is B split per row
+        Bs = dd.ozaki_split(Bh, k * dd2, axis=-1)
+        acc(*dd.dd_gemm(Bh, Bl, Bh.T, Bl.T, As=Bs, Bs=[s.T for s in Bs]))
+        del Bs
         del Bh, Bl
     if reg != 0.0:
         sc = torch.trace(Mh) / max(mp1, 1) + 1.0

@@ -256,7 +256,8 @@ def ozaki_split(A: torch.Tensor, k: int, axis: int):
     kernels.launch("dd_split.cu", "ozaki_split_launch", X.data_ptr(),
                    X.stride(0), R, C, int(row_scaled), split_bits(k),
                    *(s.data_ptr() for s in S))
-    kernels.LAUNCHES["ozaki_split"] += 1
+    kernels.count("ozaki_split",
+                  f"{R}x{C} {'rows' if row_scaled else 'cols'}")
     return [s.T for s in S] if flipped else S
 
 
@@ -266,13 +267,18 @@ def ozaki_split(A: torch.Tensor, k: int, axis: int):
 _ORDER = ((0, 1), (1, 0), (0, 2), (1, 1), (2, 0), (1, 2), (2, 1), (2, 2))
 
 
-def dd_gemm(Ah, Al, Bh, Bl):
+def dd_gemm(Ah, Al, Bh, Bl, As=None, Bs=None):
     """(Ah + Al) @ (Bh + Bl) in double-double: exact slice products plus
     the cross terms Ah Bl and Al Bh.  Ah: (m, k), Bh: (k, n); Al / Bl may
-    be None (pure f64 operands)."""
+    be None (pure f64 operands).  As / Bs, when given, are the slices of
+    Ah (per row) and Bh (per column) with this k, split once by the caller
+    for several products: a line's slices depend only on the line and k,
+    so passing them changes no bit."""
     k = Ah.shape[-1]
-    As = ozaki_split(Ah, k, axis=-1)
-    Bs = ozaki_split(Bh, k, axis=0 if Bh.dim() == 2 else -1)
+    if As is None:
+        As = ozaki_split(Ah, k, axis=-1)
+    if Bs is None:
+        Bs = ozaki_split(Bh, k, axis=0 if Bh.dim() == 2 else -1)
     Sh = As[0] @ Bs[0]
     Sl = torch.zeros_like(Sh)
     terms = [(As[i], Bs[j]) for i, j in _ORDER]
@@ -430,8 +436,11 @@ def dd_chol(Ah: torch.Tensor, Al: torch.Tensor | None = None,
         p1 = min(p0 + nb, m)
         Sh, Sl = Ah[p0:, p0:p1], Al[p0:, p0:p1]
         if p0:
+            # the B operand's lines are A's first p1 - p0 rows, same k
+            As = ozaki_split(Lh[p0:, :p0], p0, axis=-1)
             Uh, Ul = dd_gemm(Lh[p0:, :p0], Ll[p0:, :p0],
-                             Lh[p0:p1, :p0].T, Ll[p0:p1, :p0].T)
+                             Lh[p0:p1, :p0].T, Ll[p0:p1, :p0].T, As=As,
+                             Bs=[s[:p1 - p0].T for s in As])
             Sh, Sl = dd_sub(Sh, Sl, Uh, Ul)
         Ph, Pl, Ih, Il, okp = dd_panel_chol(Sh, Sl)
         Lh[p0:, p0:p1], Ll[p0:, p0:p1] = Ph, Pl

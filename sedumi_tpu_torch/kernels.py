@@ -43,12 +43,12 @@ SOURCES = {
         "dd_matvec_residual_f32_launch": [_P, _LL, _P, _P, _P, _P, _I, _I,
                                           _I, _P]},
     "psd_coo.cu": {
-        "psd_coo_outer_launch": [_P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _P],
-        "psd_coo_gather_launch": [_P, _P, _P, _P, _P, _I, _LL, _P],
-        "psd_coo_outer_f32_launch": [_P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _P],
-        "psd_coo_gather_f32_launch": [_P, _P, _P, _P, _P, _I, _LL, _P]},
+        "psd_schur_launch": [_P] * 8 + [_I, _P, _P, _P, _P] + [_I] * 4
+        + [_P],
+        "psd_schur_f32_launch": [_P] * 8 + [_I, _P, _P, _P, _P] + [_I] * 4
+        + [_P],
+        "psd_pair_launch": [_P] * 9 + [_LL, _I, _I, _P],
+        "psd_pair_f32_launch": [_P] * 9 + [_LL, _I, _I, _P]},
     "ldl_masked.cu": {
         "ldl_masked_launch": [_P, _P, _P, _P, _P, _P, _P, _I,
                               _D, _D, _D, _I, _P],
@@ -112,8 +112,8 @@ LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "dist_panel_chol": 0, "dist_trisolve_fwd": 0,
             "dist_trisolve_bwd_contrib": 0, "dist_trisolve_bwd_solve": 0}
 
-# K12's and K13's launches per variant and order (lax_eigh.variant_key),
-# beside LAUNCHES
+# launches per variant and order of K12 and K13 (lax_eigh.variant_key)
+# and per shape of K2, K3 and K4 ("name@shape", count), beside LAUNCHES
 VARIANT_LAUNCHES: dict[str, int] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -125,6 +125,14 @@ def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     VARIANT_LAUNCHES.clear()
+
+
+def count(name: str, shape: str) -> None:
+    """One launch of kernel `name` at `shape` (LAUNCHES and
+    VARIANT_LAUNCHES["name@shape"])."""
+    LAUNCHES[name] += 1
+    key = f"{name}@{shape}"
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
 def _nvcc() -> str:

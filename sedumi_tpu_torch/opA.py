@@ -8,8 +8,10 @@ and the adjoint of w = [y; t] is A'y + c t.
 [m+1, count*d]) and each PSD bucket either 'dense' (flat [m+1, k*d*d])
 or 'coo': sorted triplets b_row/b_loc/b_val for apply/adjoint and the
 Schur gather, plus per-(row, block) padded groups g_row/g_blk/gp/gq/gv
-and their output slots g_slot = g_row*k + g_blk for the scaled-operator
-build (schur._psd_contrib_coo).  build_coo_aop
+and their output slots g_slot = g_row*k + g_blk, plus the needed-entry
+arrays of kernel K2 (needed_entries: the distinct locations U of b_loc,
+cut into items and chunks, and each nonzero's index into U) for the Schur
+formation (schur._psd_contrib_coo).  build_coo_aop
 picks the representation per bucket by the reference's flop model,
 gemm_discount=3.0 included, so the dense/coo choice is the reference's.
 It builds the operator in f64, or in f32 for the precision ladder's f32
@@ -127,6 +129,118 @@ class CooAOp:
         return self.adj(torch.cat([y, minus_tau.reshape(1)]))
 
 
+# K2's work units (csrc/psd_coo.cu R and UC): a chunk is a range of at
+# most CHUNK_ENTRIES entries of U in one block, an item a row's segment of
+# at most ITEM_ENTRIES entries inside one chunk
+ITEM_ENTRIES = 4
+CHUNK_ENTRIES = 4096
+
+
+def _rotations(es: np.ndarray, itemsize: int) -> np.ndarray:
+    """Per item (a row of es: its columns, -1 past its entries) the
+    rotation of its slots that a greedy pass picks so that, slot by slot,
+    the shared-memory loads of W[q_t, e] over a group of threads (a
+    half-warp for 8-byte values, a warp for 4-byte ones) fall on distinct
+    banks (16 of 8 bytes or 32 of 4); the items run 32 to a warp from the
+    chunk's start.  A padded slot loads column 0."""
+    n_i, R = es.shape
+    nbank = 128 // itemsize
+    group = 16 if itemsize == 8 else 32
+    rot = np.zeros(n_i, np.int64)
+    for g0 in range(0, n_i, group):
+        load = [{} for _ in range(R)]        # slot -> bank -> addresses
+        for x in range(g0, min(g0 + group, n_i)):
+            row = [int(e) if e >= 0 else 0 for e in es[x]]
+            best = None
+            for k in range(R):
+                cost = 0
+                for r in range(R):
+                    addr = row[(r + k) % R]
+                    seen = load[r].get(addr % nbank, ())
+                    cost += 0 if addr in seen else len(seen)
+                if best is None or cost < best[0]:
+                    best = (cost, k)
+            rot[x] = best[1]
+            for r in range(R):
+                addr = row[(r + best[1]) % R]
+                load[r].setdefault(addr % nbank, set()).add(addr)
+    return rot
+
+
+def needed_entries(b_row, b_loc, g_slot, mp1: int, k: int, d: int,
+                   itemsize: int = 8) -> dict:
+    """The locations K2 forms, as int32 arrays (keys added to a COO part):
+
+      u_e    [nU]       column e of each distinct location U (sorted b_loc)
+      it     [nI, 3]    items: blk * d + a, first entry (index into U),
+                        entries n + 16 * rotation (slot r takes the
+                        item's entry (r + rotation) % ITEM_ENTRIES)
+      ch     [nC+1, 4]  chunks: first item, first entry, rows a_lo, a_hi
+                        (the last row: nI, nU, 0, 0)
+      b_uidx [T]        each nonzero's index into U (ascending in each row)
+      g_of   [mp1*k]    the group of (row, blk), or -1
+
+    A chunk takes whole rows a of one block while they fit (a longer row
+    is cut).  Its items run by (segment, row): the threads of a warp take
+    neighbouring rows' same segment, whose columns lie close together in
+    a banded pattern; each item's slots are rotated so that a warp's loads
+    of one slot rarely share a bank (_rotations; itemsize: the value type's
+    bytes).  b_row must ascend and b_loc ascend within each row
+    (coo_arrays' order)."""
+    b_row = np.asarray(b_row, np.int64)
+    b_loc = np.asarray(b_loc, np.int64)
+    R = ITEM_ENTRIES
+    dd = d * d
+    U = np.unique(b_loc)
+    b_uidx = np.searchsorted(U, b_loc)
+    same_row = b_row[1:] == b_row[:-1]
+    if np.any(b_row[1:] < b_row[:-1]) or np.any(
+            same_row & (b_uidx[1:] <= b_uidx[:-1])):
+        raise ValueError("needed_entries: b_row must ascend and b_loc "
+                         "ascend within each row")
+    ab = (U // dd) * d + (U % dd) // d
+    starts = np.flatnonzero(np.r_[True, ab[1:] != ab[:-1]])
+    ends = np.r_[starts[1:], U.size]
+    bounds = [0]
+    for s0, s1 in zip(starts, ends):      # the rows of U, in order
+        b0 = bounds[-1]
+        if s0 > b0 and (ab[s0] // d != ab[b0] // d
+                        or s1 - b0 > CHUNK_ENTRIES):
+            bounds.append(int(s0))
+        while s1 - bounds[-1] > CHUNK_ENTRIES:
+            bounds.append(bounds[-1] + CHUNK_ENTRIES)
+    bounds.append(U.size)
+    items, chunks = [], []
+    for u0, u1 in zip(bounds[:-1], bounds[1:]):
+        abc = ab[u0:u1]
+        first = np.r_[True, abc[1:] != abc[:-1]]
+        pos = np.arange(abc.size) - np.flatnonzero(first)[np.cumsum(first)
+                                                          - 1]
+        seg = pos // R
+        order = np.lexsort((abc, seg))          # by segment, then row
+        key = seg[order] * (k * d) + abc[order]
+        head = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+        n = np.diff(np.r_[head, order.size])
+        ua = u0 + order[head]
+        es = np.where(np.arange(R) < n[:, None],
+                      U[np.minimum(ua[:, None] + np.arange(R), U.size - 1)]
+                      % d, -1)
+        chunks.append((sum(len(x) for x in items), u0, abc[0] % d,
+                       abc[-1] % d))
+        items.append(np.stack([abc[order][head], ua,
+                               n + 16 * _rotations(es, itemsize)], axis=1))
+    n_items = sum(len(x) for x in items)
+    chunks.append((n_items, U.size, 0, 0))
+    g_of = np.full(mp1 * k, -1, np.int64)
+    g_of[np.asarray(g_slot, np.int64)] = np.arange(len(g_slot))
+    i32 = np.int32
+    return {"u_e": (U % d).astype(i32),
+            "it": (np.concatenate(items) if items
+                   else np.zeros((0, 3))).astype(i32),
+            "ch": np.asarray(chunks, i32).reshape(-1, 4),
+            "b_uidx": b_uidx.astype(i32), "g_of": g_of.astype(i32)}
+
+
 def coo_arrays(At: sp.spmatrix, c: np.ndarray, layout: Layout,
                gemm_discount: float = 3.0, dtype=np.float64):
     """Host (numpy) half of build_coo_aop: the dense LP/Lorentz matrices
@@ -218,16 +332,22 @@ def coo_arrays(At: sp.spmatrix, c: np.ndarray, layout: Layout,
             # CSR row pointers of the sorted b_row (the Schur gather kernel)
             "b_rowptr": np.searchsorted(b_row, np.arange(mp1 + 1)),
             "g_row": kr[start], "g_blk": kb[start],
-            # B~ output slot of each group (schur.psd_outer)
+            # B~ output slot of each group (schur.psd_outer_plain)
             "g_slot": kr[start] * k + kb[start],
             "gp": gp, "gq": gq, "gv": gv,
         })
+        s_parts[-1].update(needed_entries(b_row, b_loc, s_parts[-1]["g_slot"],
+                                          mp1, k, d,
+                                          np.dtype(dtype).itemsize))
         s_meta.append(("coo", k, d, int(G), int(pad2), int(T)))
     return Al, Aq, q_shapes, s_parts, s_meta
 
 
 def _part_to_torch(part: dict, device, dtype=F64) -> dict:
+    """Floats in `dtype`; K2's needed-entry arrays stay int32, the other
+    indices int64."""
     return {key: _put(a, device, dtype if a.dtype.kind == "f"
+                      else torch.int32 if a.dtype == np.int32
                       else torch.int64)
             for key, a in part.items()}
 

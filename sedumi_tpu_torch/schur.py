@@ -9,8 +9,9 @@ spscale.c).  Per cone family:
   PSD, 'coo' bucket:    kernel K2, _psd_contrib_coo
 
 Everything runs in the operator's dtype: f64, or f32 in the precision
-ladder's f32 and hybrid phases (K2-f32 on the card).  K2's first half, psd_outer, also builds the sparse engine's per-group
-B~ (sparse_engine.TileSchurEngine).
+ladder's f32 and hybrid phases (K2-f32 on the card).  K2's pair entry,
+psd_pair_values, forms the sparse engine's PSD pair values
+(sparse_engine.ada_values).
 
 The augmented row m carries c, so M holds ADA, A H c and c' H c.
 """
@@ -97,35 +98,53 @@ def psd_outer_plain(W: torch.Tensor, g_blk: torch.Tensor, gp: torch.Tensor,
     return btf
 
 
-def _psd_outer_kernel(W: torch.Tensor, g_blk: torch.Tensor, gp: torch.Tensor,
-                      gq: torch.Tensor, gv: torch.Tensor, g_slot: torch.Tensor,
-                      nout: int) -> torch.Tensor:
-    """The same function on the card: csrc/psd_coo.cu (a), f64 or f32."""
-    W = W.contiguous()
-    if W.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"psd_outer takes f32 or f64, got {W.dtype}")
-    kernels.check_cuda(W, gv, dtype=W.dtype)
-    kernels.check_cuda(g_blk, gp, gq, g_slot, dtype=torch.int64)
-    G, pad2 = gp.shape
+def _suffix(dtype) -> str:
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"kernel K2 takes f32 or f64, got {dtype}")
+    return "_f32" if dtype == torch.float32 else ""   # K2-f32
+
+
+def psd_pair_values_plain(W: torch.Tensor, g_blk: torch.Tensor,
+                          gp: torch.Tensor, gq: torch.Tensor,
+                          gv: torch.Tensor, sp_g: torch.Tensor,
+                          sp_loc: torch.Tensor,
+                          sp_val: torch.Tensor) -> torch.Tensor:
+    """B~_g at the sparse engine's pair entries (group sp_g, flat location
+    sp_loc in d x d) times sp_val (plain PyTorch: the groups' whole blocks,
+    then the gather)."""
+    G = gp.shape[0]
     d = W.shape[-1]
-    btf = torch.zeros(nout, d, d, dtype=W.dtype, device=W.device)
-    suffix = "_f32" if W.dtype == torch.float32 else ""   # K2-f32
-    kernels.launch("psd_coo.cu", f"psd_coo_outer{suffix}_launch",
-                   W.data_ptr(), g_slot.data_ptr(), g_blk.data_ptr(),
-                   gp.data_ptr(), gq.data_ptr(), gv.data_ptr(),
-                   btf.data_ptr(), G, pad2, d)
-    kernels.LAUNCHES["psd_contrib_coo" + suffix] += 1
-    return btf
+    Bg = psd_outer_plain(W, g_blk, gp, gq, gv,
+                         torch.arange(G, device=W.device), G)
+    return Bg.reshape(G, d * d)[sp_g, sp_loc] * sp_val
 
 
-def psd_outer(W: torch.Tensor, g_blk: torch.Tensor, gp: torch.Tensor,
-              gq: torch.Tensor, gv: torch.Tensor, g_slot: torch.Tensor,
-              nout: int) -> torch.Tensor:
-    """Per-group scaled operators B~ (kernel K2 (a) on the card); see
-    psd_outer_plain."""
+def _psd_pair_values_kernel(W, g_blk, gp, gq, gv, sp_g, sp_loc, sp_val):
+    """The same function on the card: csrc/psd_coo.cu psd_pair, one
+    thread a pair, f64 or f32."""
+    W = W.contiguous()
+    suffix = _suffix(W.dtype)
+    kernels.check_cuda(W, gv, sp_val, dtype=W.dtype)
+    kernels.check_cuda(g_blk, gp, gq, sp_g, sp_loc, dtype=torch.int64)
+    out = torch.empty_like(sp_val)
+    kernels.launch("psd_coo.cu", f"psd_pair{suffix}_launch", W.data_ptr(),
+                   g_blk.data_ptr(), gp.data_ptr(), gq.data_ptr(),
+                   gv.data_ptr(), sp_g.data_ptr(), sp_loc.data_ptr(),
+                   sp_val.data_ptr(), out.data_ptr(), out.numel(),
+                   gp.shape[1], W.shape[-1])
+    kernels.count("psd_contrib_coo" + suffix,
+                  f"pairs {out.numel()} d {W.shape[-1]} pad2 {gp.shape[1]}")
+    return out
+
+
+def psd_pair_values(W, g_blk, gp, gq, gv, sp_g, sp_loc, sp_val):
+    """The sparse engine's PSD pair values (kernel K2 on the card, one
+    value a pair, written straight into the vector the segment sum
+    takes); see psd_pair_values_plain."""
     if W.is_cuda:
-        return _psd_outer_kernel(W, g_blk, gp, gq, gv, g_slot, nout)
-    return psd_outer_plain(W, g_blk, gp, gq, gv, g_slot, nout)
+        return _psd_pair_values_kernel(W, g_blk, gp, gq, gv, sp_g, sp_loc,
+                                       sp_val)
+    return psd_pair_values_plain(W, g_blk, gp, gq, gv, sp_g, sp_loc, sp_val)
 
 
 def _psd_contrib_coo_plain(part: dict, k: int, d: int, G: int, pad2: int,
@@ -141,20 +160,39 @@ def _psd_contrib_coo_plain(part: dict, k: int, d: int, G: int, pad2: int,
         .index_add_(0, part["b_row"], tmp.T)
 
 
+# K2's staging limit (csrc/psd_coo.cu STAGE): a chunk's rows a and a row
+# of W must fit beside each other
+_MAX_D = 3072
+
+
 def _psd_contrib_coo_kernel(part: dict, k: int, d: int, G: int, pad2: int,
                             mp1: int, W: torch.Tensor) -> torch.Tensor:
-    """The same function on the card: csrc/psd_coo.cu (a) builds B~ group
-    by group, (b) gathers M row by row."""
-    kernels.check_cuda(part["b_val"], dtype=W.dtype)
-    kernels.check_cuda(part["b_rowptr"], part["b_loc"], dtype=torch.int64)
-    btf = _psd_outer_kernel(W, part["g_blk"], part["gp"], part["gq"],
-                            part["gv"], part["g_slot"], mp1 * k)
+    """The same function on the card: csrc/psd_coo.cu psd_schur, one
+    launch, B~ formed only at the needed entries (opA.needed_entries)."""
+    W = W.contiguous()
+    suffix = _suffix(W.dtype)
+    if "b_uidx" not in part:
+        raise ValueError("kernel K2 needs the part's needed-entry arrays "
+                         "(opA.needed_entries)")
+    if d > _MAX_D:
+        raise ValueError(f"kernel K2 stages blocks of order <= {_MAX_D}, "
+                         f"got {d}")
+    kernels.check_cuda(W, part["gv"], part["b_val"], dtype=W.dtype)
+    kernels.check_cuda(part["gp"], part["gq"], part["b_rowptr"],
+                       dtype=torch.int64)
+    ne = [part[key] for key in ("g_of", "u_e", "it", "ch", "b_uidx")]
+    kernels.check_cuda(*ne, dtype=torch.int32)
     M = torch.empty(mp1, mp1, dtype=W.dtype, device=W.device)
-    suffix = "_f32" if W.dtype == torch.float32 else ""
-    kernels.launch("psd_coo.cu", f"psd_coo_gather{suffix}_launch",
-                   btf.data_ptr(),
-                   part["b_rowptr"].data_ptr(), part["b_loc"].data_ptr(),
-                   part["b_val"].data_ptr(), M.data_ptr(), mp1, k * d * d)
+    kernels.launch("psd_coo.cu", f"psd_schur{suffix}_launch", W.data_ptr(),
+                   part["g_of"].data_ptr(), part["gp"].data_ptr(),
+                   part["gq"].data_ptr(), part["gv"].data_ptr(),
+                   part["u_e"].data_ptr(), part["it"].data_ptr(),
+                   part["ch"].data_ptr(), part["ch"].shape[0] - 1,
+                   part["b_rowptr"].data_ptr(), part["b_uidx"].data_ptr(),
+                   part["b_val"].data_ptr(), M.data_ptr(), mp1, k, d, pad2)
+    kernels.count("psd_contrib_coo" + suffix,
+                  f"mp1 {mp1} d {d} G {G} pad2 {pad2} "
+                  f"U {part['u_e'].numel()}")
     return M
 
 

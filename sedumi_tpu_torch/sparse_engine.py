@@ -13,7 +13,7 @@ deninfac.m/dpr1fact.c, wrapPcg.m/loopPcg.m):
   adj / adj_y by library ``index_add_``) plus the plan's device arrays.
 * :class:`TileSchurEngine` -- prepare(): ADA values by ``index_add_``
   segment sums of pair triples and rank-1 terms, the PSD term through
-  kernel K2's group build (schur.psd_outer), tile assembly, the
+  kernel K2's pair values (schur.psd_pair_values), tile assembly, the
   level-scheduled tile factor (K8, K9), the dense columns' capacitance
   factored by K3 (chol.ldl_masked, pars.chol.maxuden); solve(): the
   Woodbury direct solve (K10 per tile solve) as the preconditioner of PCG
@@ -148,20 +148,18 @@ def ada_values(aop: SparseLqOp, S: nt.Scaling):
             2.0 * eta2_flat[arr["p2_c"]] * u[arr["p2_a"]] * u[arr["p2_b"]],
             arr["p2_dst"], nnz_l)
 
-    # PSD term: B~_g = W A_g W per (constraint, block) group by kernel
-    # K2's group build, then the per-pair gather
-    for bi, (k, d) in enumerate(meta["s_shapes"]):
-        G = meta["s_G"][bi]
-        if not G:
+    # PSD term: (W A_g W)[loc] sp_val per gathered pair, B~_g = W A_g W
+    # of the pair's (constraint, block) group formed at that entry only
+    # (kernel K2's pair entry), then the per-pair segment sum
+    for bi in range(len(meta["s_shapes"])):
+        if not meta["s_G"][bi]:
             continue
         W = schur.psd_gram(S.s_r[bi])
-        Bg = schur.psd_outer(W, arr["sg_blk"][bi], arr["sg_p"][bi],
-                             arr["sg_q"][bi], arr["sg_v"][bi],
-                             torch.arange(G, device=dev), G)
-        vals = vals + _segsum(
-            Bg.reshape(G, d * d)[arr["sp_g"][bi], arr["sp_loc"][bi]]
-            * arr["sp_val"][bi], arr["sp_dst"][bi], nnz_l)
-        del Bg
+        pv = schur.psd_pair_values(
+            W, arr["sg_blk"][bi], arr["sg_p"][bi], arr["sg_q"][bi],
+            arr["sg_v"][bi], arr["sp_g"][bi], arr["sp_loc"][bi],
+            arr["sp_val"][bi])
+        vals = vals + _segsum(pv, arr["sp_dst"][bi], nnz_l)
     return vals, w, eta2_flat
 
 

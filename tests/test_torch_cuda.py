@@ -22,14 +22,17 @@ import scipy.sparse as sp
 import torch
 
 import dd_emulation as ddemu
+import psd_emulation as psdemu
 import sedumi_tpu_torch as st
 import tile_emulation as emu
 from chip_smoke import TILE_TOL, df_call, df_emulated, df_vectors, \
     jacobi_compare, k1_emulated, k1_operands, nt_like, random_sparse_lp, \
     same_words
-from sedumi_tpu_torch import chol, ddlinalg, df, ipm, kernels, lax_eigh, \
-    linalg_ops, opA, pcg, schur, sparse_chol, sparse_engine, transform
+from sedumi_tpu_torch import chol, ddengine, ddlinalg, df, ipm, kernels, \
+    lax_eigh, linalg_ops, opA, pcg, schur, sparse_chol, sparse_engine, \
+    transform
 from sedumi_tpu_torch.examples import load_example
+from sedumi_tpu_torch.generators import feasible_problem
 from sedumi_tpu_torch.params import Pars
 
 # cuBLAS is deterministic under torch.use_deterministic_algorithms only
@@ -95,6 +98,15 @@ def test_dd_residual_kernel(cuda, m):
     assert bool(torch.all((r_k - r_p).abs() <= tol))
 
 
+def coo_pairs(part, k, d):
+    """(sp_g, sp_loc, sp_val) of a COO part's nonzeros: each nonzero's
+    own group and its location in the d x d block."""
+    g_of = part["g_of"].long()
+    blk = part["b_loc"] // (d * d)
+    return (g_of[part["b_row"] * k + blk], part["b_loc"] % (d * d),
+            part["b_val"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [1, 2])
 def test_psd_contrib_coo_kernel(cuda, seed):
@@ -110,12 +122,14 @@ def test_psd_contrib_coo_kernel(cuda, seed):
         Mp = schur._psd_contrib_coo_plain(part, k, d, G, pad2, aop.m + 1, W)
         assert float((Mk - Mp).abs().max()) <= 1e-12 * float(
             Mp.abs().max())
-        # the sparse engine's layout: one B~ per group, slots 0..G-1
-        args = (W, part["g_blk"], part["gp"], part["gq"], part["gv"],
-                torch.arange(G, device=cuda), G)
-        Bk = schur._psd_outer_kernel(*args)
-        Bp = schur.psd_outer_plain(*args)
-        assert Bk.shape == (G, d, d)
+        # the sparse engine's entry: B~ of a nonzero's own group at its
+        # location, times its value, one value a pair
+        pair = coo_pairs(part, k, d)
+        Bk = schur._psd_pair_values_kernel(W, part["g_blk"], part["gp"],
+                                           part["gq"], part["gv"], *pair)
+        Bp = schur.psd_pair_values_plain(W, part["g_blk"], part["gp"],
+                                         part["gq"], part["gv"], *pair)
+        assert Bk.shape == (T,)
         assert float((Bk - Bp).abs().max()) <= 1e-12 * float(
             Bp.abs().max())
 
@@ -171,7 +185,7 @@ def test_dd_residual_f32_kernel(cuda, m):
 @pytest.mark.parametrize("seed", [1, 2])
 def test_psd_contrib_coo_f32_kernel(cuda, seed):
     """K2-f32 within 2 (pad2 + Tmax + 3) u M_abs of its twin (see
-    chip_smoke.check_psd_coo_f32)."""
+    chip_smoke.check_psd_coo)."""
     prob = sparse_sdp(seed)
     aop = opA.build_coo_aop(prob.At, prob.c, prob.layout, device=cuda,
                             gemm_discount=0.0, dtype=torch.float32)
@@ -637,6 +651,144 @@ def test_ozaki_split_kernel(cuda, shape, k, axis, transposed):
     assert kernels.LAUNCHES["ozaki_split"] == n0 + 1
     for g, w in zip(got, ddlinalg.ozaki_split_plain(A, k, axis)):
         assert bits_equal(g, w)
+
+
+def small_coo(device, dtype, chunk, monkeypatch):
+    """The COO bucket of a small PSD problem (blocks 4 and 3, m = 5, packed
+    into one block of order 64 by the data layer), built with chunks of at
+    most `chunk` entries of U, and a random W = R R' of its shape."""
+    monkeypatch.setattr(opA, "CHUNK_ENTRIES", chunk)
+    At, b, c, K = feasible_problem({"s": [4, 3]}, 5, seed=4)
+    At = sp.csc_matrix(At)
+    At.data[np.random.default_rng(4).random(At.nnz) > 0.4] = 0.0
+    At.eliminate_zeros()
+    prob = transform.pretransfo(At, b, c, K, Pars(fid=0))
+    aop = opA.build_coo_aop(prob.At, prob.c, prob.layout, device=device,
+                            gemm_discount=0.0, dtype=dtype)
+    part, (rep, k, d, G, pad2, T) = aop.s_parts[0], aop.s_meta[0]
+    assert rep == "coo"
+    rng = np.random.default_rng(chunk)
+    W = schur.psd_gram(torch.as_tensor(
+        rng.standard_normal((k, d, d)) / np.sqrt(d) + np.eye(d),
+        dtype=dtype, device=device))
+    return aop, part, (k, d, G, pad2, T), W
+
+
+def numpy_part(part):
+    return {key: a.cpu().numpy() for key, a in part.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("chunk", [4096, 7])
+def test_psd_schur_matches_emulation(cuda, dtype, chunk, monkeypatch):
+    """K2 (one launch) bit for bit the exact-fma emulation of its order,
+    f64 and f32, in one chunk and in chunks of 7 entries of U (the sums
+    carried through M between chunks)."""
+    aop, part, (k, d, G, pad2, T), W = small_coo(cuda, dtype, chunk,
+                                                 monkeypatch)
+    mp1 = aop.m + 1
+    assert (part["ch"].shape[0] > 2) == (chunk < 4096)
+    sfx = "_f32" if dtype == torch.float32 else ""
+    n0 = kernels.LAUNCHES["psd_contrib_coo" + sfx]
+    Mk = schur._psd_contrib_coo_kernel(part, k, d, G, pad2, mp1, W)
+    assert kernels.LAUNCHES["psd_contrib_coo" + sfx] == n0 + 1
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    want = psdemu.contrib_chunks(numpy_part(part), k, d, mp1,
+                                 W.cpu().numpy(), npdt)
+    assert bits_equal(Mk.cpu(), torch.as_tensor(want))
+    assert bits_equal(Mk, schur._psd_contrib_coo_kernel(part, k, d, G, pad2,
+                                                        mp1, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_psd_pair_values_match_emulation(cuda, dtype):
+    """K2's sparse-engine entry bit for bit the exact-fma emulation, f64
+    and f32, on a small SDP plan's pair list."""
+    from chip_smoke import random_sparse_sdp
+
+    A, b, c, K = random_sparse_sdp(60, 20, 4, np.random.default_rng(3))
+    prob = transform.pretransfo(A, b, c, K, Pars(fid=0))
+    arrays, meta = sparse_engine.plan_sparse_lq(prob.At, prob.c,
+                                                prob.layout, Pars(fid=0))
+    aop = sparse_engine.make_sparse_lq_op(arrays, meta, dtype=dtype,
+                                          device=cuda)
+    rng = np.random.default_rng(5)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    for bi, (k, d) in enumerate(meta["s_shapes"]):
+        a = aop.arrays
+        W = schur.psd_gram(torch.as_tensor(
+            rng.standard_normal((k, d, d)) + 2 * np.eye(d), dtype=dtype,
+            device=cuda))
+        args = [a[key][bi] for key in ("sg_blk", "sg_p", "sg_q", "sg_v",
+                                       "sp_g", "sp_loc", "sp_val")]
+        got = schur.psd_pair_values(W, *args)
+        want = psdemu.pair_values(W.cpu().numpy(),
+                                  *(x.cpu().numpy() for x in args), npdt)
+        assert got.numel() > 0
+        assert bits_equal(got.cpu(), torch.as_tensor(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ld,offset,k", [
+    ((85376, 128), 128, 0, 128),          # control07's A_k and T'
+    ((175, 25921), 25921, 0, 25921),      # arch0's Gram operand
+    ((667, 16384), 16384, 0, 16384),      # control07's Gram operand
+    ((618, 48), 666, 48 * 666, 48),       # dd_chol's first update, 666
+    ((42, 624), 666, 624 * 666, 624),     # its last
+    ((301, 77), 79, 1, 77),               # rows off the 16-byte boundary
+    ((9, 1200), 1203, 3, 1200),           # a cluster of one CTA
+    ((3, 70001), 70001, 1, 70001),        # beyond the registers
+    ((5, 1), 3, 1, 2)])
+def test_ozaki_split_path_shapes(cuda, shape, ld, offset, k):
+    """K4 bit for bit the plain split at the path's row shapes (the warp,
+    cluster and long-row variants) and on misaligned views."""
+    R, C = shape
+    base = torch.as_tensor(wide((offset + R * ld,), R + C), device=cuda)
+    A = base.as_strided((R, C), (ld, 1), offset)
+    n0 = kernels.LAUNCHES["ozaki_split"]
+    got = ddlinalg.ozaki_split(A, k, -1)
+    assert kernels.LAUNCHES["ozaki_split"] == n0 + 1
+    for g, w in zip(got, ddlinalg.ozaki_split_plain(A, k, -1)):
+        assert bits_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_ozaki_split_launches_per_dd64_prepare(cuda, monkeypatch):
+    """One control07-sized dd64 prepare (form_dd, then dd_chol of m = 666)
+    launches K4 17 times: R_k, A_k and T' once each, the Gram's operand
+    once, one per dd_chol trailing update; M and the factor equal the
+    route that splits every operand of every dd_gemm (the earlier build's
+    32 launches) bit for bit."""
+    from chip_smoke import dense_case
+
+    aop, S = dense_case("control07", cuda)
+    m = aop.m
+    kernels.reset_launch_counts()
+    Mh, Ml = ddengine.form_dd(aop, S, 0.0)
+    f = ddlinalg.dd_chol(Mh[:m, :m], Ml[:m, :m])
+    torch.cuda.synchronize()
+    sites = {key: v for key, v in kernels.VARIANT_LAUNCHES.items()
+             if key.startswith("ozaki_split@")}
+    print(json.dumps(sites))
+    assert kernels.LAUNCHES["ozaki_split"] == 17
+    plain = ddlinalg.dd_gemm
+    inside = []
+
+    def split_both(Ah, Al, Bh, Bl, As=None, Bs=None):
+        n0 = kernels.LAUNCHES["ozaki_split"]
+        out = plain(Ah, Al, Bh, Bl)
+        inside.append(kernels.LAUNCHES["ozaki_split"] - n0)
+        return out
+
+    monkeypatch.setattr(ddlinalg, "dd_gemm", split_both)
+    Mh2, Ml2 = ddengine.form_dd(aop, S, 0.0)
+    f2 = ddlinalg.dd_chol(Mh2[:m, :m], Ml2[:m, :m])
+    assert sum(inside) == 32 and len(inside) == 16
+    for a, b in ((Mh, Mh2), (Ml, Ml2), (f.Lh, f2.Lh), (f.Ll, f2.Ll),
+                 (f.inv_h, f2.inv_h), (f.inv_l, f2.inv_l)):
+        assert bits_equal(a, b)
 
 
 @pytest.mark.cuda
