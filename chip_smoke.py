@@ -36,7 +36,8 @@
    on socp-dense's and nb's operators and at [1001, 65536].  K2 and
    K2-f32 are timed at arch0's, trto3's and OH's COO buckets (with K2's
    least work, the needed entries, and the earlier design's whole blocks
-   as bounds), K3 and K3-f32 at the path's orders 124 and 3 (K3_ORDERS),
+   as bounds), K3 and K3-f32 at the path's orders 3, 124, 174 and 666
+   (K3_ORDERS: its warp, shared and device variants, us a column),
    K4 at the dd64 path's shapes (K4_SHAPES), with its launches per call
    site over one control07 dd64 prepare (at most 17).  K8-K10 and their
    f32 builds follow the sparse paths (4., 5.), on their plans.
@@ -344,14 +345,15 @@ def dense_case(name, dev, seed=7, dtype=torch.float64):
 
 
 def launch_key(fn, prefix: str):
-    """(fn(), the kernels.VARIANT_LAUNCHES key, "name@shape", of the one
-    launch it made)."""
+    """(fn(), the kernels.VARIANT_LAUNCHES key, "name@shape" or
+    "name:variant@shape", of the one launch it made)."""
     from sedumi_tpu_torch import kernels
 
     before = dict(kernels.VARIANT_LAUNCHES)
     out = fn()
     keys = [k for k, v in kernels.VARIANT_LAUNCHES.items()
-            if k.startswith(prefix + "@") and v != before.get(k, 0)]
+            if k.startswith((prefix + "@", prefix + ":"))
+            and v != before.get(k, 0)]
     if len(keys) != 1:
         fail(f"{prefix}: expected one launch, counted {keys}")
     return out, keys[0]
@@ -491,21 +493,28 @@ def indefinite_matrix(m: int, gen) -> torch.Tensor:
     return M
 
 
-# K3 at the path's orders: nb+zero-row's singular ADA (m = 124) and
-# lp900+3dense's Woodbury capacitance (m = 3)
-K3_ORDERS = ((124, "nb+zero-row ADA"), (3, "lp900+3dense capacitance"))
+# K3 at the path's orders: lp900+3dense's Woodbury capacitance (m = 3, the
+# warp variant), nb+zero-row's singular ADA (124) and arch0's Schur order
+# (174, the shared variant), control07's (666, the device variant)
+K3_ORDERS = ((3, "lp900+3dense capacitance"), (124, "nb+zero-row ADA"),
+             (174, "arch0's order"), (666, "control07's order"))
 
 
-def k3_shape_times(dtype, dev, gen) -> dict:
-    """K3 (K3-f32) at K3_ORDERS: against the plain version (f32 bit for
-    bit, f64 within 1e-12 of max|L|, |d|), timed (events, graph replay)
-    beside it and the bound."""
+def check_ldl_masked(dev, gen, dtype=torch.float64):
+    """K3 (K3-f32 for dtype f32) at K3_ORDERS on indefinite_matrix (m = 3:
+    B B' + I, the capacitance's kind): one launch a call, L, d, skip and
+    diagadd bit for bit the plain version, the order-174 matrix triggering
+    both the add and the skip rule; each order timed (events, graph
+    replay, us a column of the graph time) beside the plain version and
+    the bound: M's lower triangle read, L, d, diagadd and skip written
+    once, 3 flops a kept column's trailing entry.  The row's own numbers
+    are order 174's."""
     from sedumi_tpu_torch.chol import ldl_masked, ldl_masked_plain
 
     f32 = dtype == torch.float32
     name = "ldl_masked_f32" if f32 else "ldl_masked"
     size = 4.0 if f32 else 8.0
-    out = {}
+    shapes = {}
     for m, label in K3_ORDERS:
         if m > 3:
             M = indefinite_matrix(m, gen)
@@ -514,78 +523,39 @@ def k3_shape_times(dtype, dev, gen) -> dict:
             M = B @ B.T + torch.eye(m, dtype=torch.float64)
         M = M.to(dtype).to(dev)
         fk, key = launch_key(lambda: ldl_masked(M), name)
+        torch.cuda.synchronize()
         fp_ = ldl_masked_plain(M)
-        fin = torch.isfinite(fp_.d)
-        if f32:
-            ok = all(bit_diff(a, b)[0] for a, b in
-                     ((fk.L, fp_.L), (fk.d, fp_.d),
-                      (fk.diagadd, fp_.diagadd)))
-        else:
-            err = max(float(torch.abs(fk.L - fp_.L).max()),
-                      float(torch.abs(fk.d[fin] - fp_.d[fin]).max()))
-            ok = err <= 1e-12 * max(float(torch.abs(fp_.L).max()),
-                                    float(torch.abs(fp_.d[fin]).max()))
-        if not (ok and torch.equal(fk.skip, fp_.skip)):
+        n_skip, n_add = int(fp_.skip.sum()), int((fp_.diagadd > 0).sum())
+        same = bool(torch.equal(fk.skip, fp_.skip)) and all(
+            bit_diff(a, b)[0] for a, b in ((fk.L, fp_.L), (fk.d, fp_.d),
+                                           (fk.diagadd, fp_.diagadd)))
+        if not same:
             fail(f"{name} disagrees with its plain version at m={m}")
+        if m == 174 and not (n_skip > 0 and n_add > n_skip):
+            fail("the K3 test matrix did not trigger both add and skip")
         keep = (~fp_.skip).cpu().numpy()
         flops = sum(3.0 * (m - j - 1) * (m - j) / 2 + (m - j - 1)
                     for j in range(m) if keep[j])
-        row = dict(ms=cuda_ms(lambda: ldl_masked(M), 20),
+        row = dict(key=key, variant=key.split(":")[1].split("@")[0],
+                   skipped=n_skip, added=n_add, max_abs_err=0.0,
+                   ms=cuda_ms(lambda: ldl_masked(M), 20),
                    graph_ms=graph_ms(lambda: ldl_masked(M)),
                    plain_ms=cuda_ms(lambda: ldl_masked_plain(M), 2,
-                                    warmup=1), key=key)
+                                    warmup=1))
+        row["us_per_column"] = 1e3 * row["graph_ms"] / m
         row["bound_ms"], row["bound_by"] = bound_ms(
-            size * (2 * m * m + 3 * m) + m, flops,
+            size * (m * (m + 1) / 2 + m * m + 2 * m) + m, flops,
             PEAK_F32_PER_S if f32 else PEAK_F64_PER_S)
-        print(f"K3 {name} m={m} ({label}): " + json.dumps(row), flush=True)
-        out[f"m={m} {label}"] = row
-    return out
-
-
-def check_ldl_masked(dev, gen):
-    """K3 on an indefinite 174 x 174 matrix (arch0's Schur order) built to
-    trigger both the add and the skip rule."""
-    from sedumi_tpu_torch import kernels
-    from sedumi_tpu_torch.chol import ldl_masked, ldl_masked_plain
-
-    m = 174
-    M = indefinite_matrix(m, gen).to(dev)
-    n0 = kernels.LAUNCHES["ldl_masked"]
-    fk = ldl_masked(M)
-    torch.cuda.synchronize()
-    if kernels.LAUNCHES["ldl_masked"] != n0 + 1:
-        fail("ldl_masked did not launch its kernel")
-    fp_ = ldl_masked_plain(M)
-    n_skip, n_add = int(fp_.skip.sum()), int((fp_.diagadd > 0).sum())
-    same_masks = bool(torch.equal(fk.skip, fp_.skip)
-                      and torch.equal(fk.diagadd > 0, fp_.diagadd > 0))
-    fin = torch.isfinite(fp_.d)
-    err = max(float(torch.abs(fk.L - fp_.L).max()),
-              float(torch.abs(fk.d[fin] - fp_.d[fin]).max()),
-              float(torch.abs(fk.diagadd - fp_.diagadd).max()))
-    scale = max(float(torch.abs(fp_.L).max()),
-                float(torch.abs(fp_.d[fin]).max()))
-    print(f"K3 ldl_masked m={m}: skipped {n_skip}, added {n_add}, masks "
-          f"equal {same_masks}, max err={err:.3e} (tol 1e-12*{scale:.3e})",
-          flush=True)
-    if not (n_skip > 0 and n_add > n_skip):
-        fail("the K3 test matrix did not trigger both add and skip")
-    if not (same_masks and torch.equal(torch.isfinite(fk.d), fin)
-            and err <= 1e-12 * scale):
-        fail("ldl_masked kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: ldl_masked(M), 10)
-    plain = cuda_ms(lambda: ldl_masked_plain(M), 2, warmup=1)
-    keep = (~fp_.skip).cpu().numpy()
-    flops = sum(3.0 * (m - j - 1) * (m - j) / 2 + (m - j - 1)
-                for j in range(m) if keep[j])
-    nbytes = 8.0 * (2 * m * m + 3 * m) + m
-    b_ms, b_by = bound_ms(nbytes, flops)
-    return dict(name="ldl_masked", route="cuda",
+        print(f"K3 {name} m={m} ({label}): bit for bit, "
+              + json.dumps(row), flush=True)
+        shapes[f"m={m} {label}"] = row
+    head = shapes["m=174 arch0's order"]
+    return dict(name=name, route="cuda",
                 source="sedumi_tpu_torch/csrc/ldl_masked.cu",
-                replaces="sedumi_tpu/chol.py:95",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                shapes=k3_shape_times(torch.float64, dev, gen))
+                replaces="sedumi_tpu/chol.py:95", library_ms=None,
+                shapes=shapes, **{k: head[k] for k in (
+                    "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                    "bound_by")})
 
 
 def wide_matrix(shape, gen) -> torch.Tensor:
@@ -1083,47 +1053,6 @@ def check_dd_residual_f32(dev, gen):
                     lambda: torch.addmv(rhs, M, v, alpha=-1.0)),
                 library="torch.addmv",
                 shapes=k1_shape_times(torch.float32, dev))
-
-
-def check_ldl_masked_f32(dev, gen):
-    """K3-f32 on the indefinite 174 x 174 matrix of the f64 check, in f32:
-    masks, pivots and L bit for bit against the plain version."""
-    from sedumi_tpu_torch import kernels
-    from sedumi_tpu_torch.chol import ldl_masked, ldl_masked_plain
-
-    m = 174
-    M = indefinite_matrix(m, gen).to(torch.float32).to(dev)
-    n0 = kernels.LAUNCHES["ldl_masked_f32"]
-    fk = ldl_masked(M)
-    torch.cuda.synchronize()
-    if kernels.LAUNCHES["ldl_masked_f32"] != n0 + 1:
-        fail("ldl_masked did not launch its f32 kernel")
-    fp_ = ldl_masked_plain(M)
-    n_skip, n_add = int(fp_.skip.sum()), int((fp_.diagadd > 0).sum())
-    same = all(bit_diff(a, b)[0] for a, b in
-               ((fk.L, fp_.L), (fk.d, fp_.d), (fk.diagadd, fp_.diagadd)))
-    same = same and bool(torch.equal(fk.skip, fp_.skip))
-    fin = torch.isfinite(fp_.d)
-    err = max(bit_diff(fk.L, fp_.L)[1], bit_diff(fk.d, fp_.d)[1])
-    print(f"K3-f32 ldl_masked m={m}: skipped {n_skip}, added {n_add}, bit "
-          f"for bit {same}", flush=True)
-    if not (n_skip > 0 and n_add > n_skip):
-        fail("the K3-f32 test matrix did not trigger both add and skip")
-    if not (same and torch.equal(torch.isfinite(fk.d), fin)):
-        fail("ldl_masked f32 kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: ldl_masked(M), 10)
-    plain = cuda_ms(lambda: ldl_masked_plain(M), 2, warmup=1)
-    keep = (~fp_.skip).cpu().numpy()
-    flops = sum(3.0 * (m - j - 1) * (m - j) / 2 + (m - j - 1)
-                for j in range(m) if keep[j])
-    b_ms, b_by = bound_ms(4.0 * (2 * m * m + 3 * m) + m, flops,
-                          PEAK_F32_PER_S)
-    return dict(name="ldl_masked_f32", route="cuda",
-                source="sedumi_tpu_torch/csrc/ldl_masked.cu",
-                replaces="sedumi_tpu/chol.py:95",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                shapes=k3_shape_times(torch.float32, dev, gen))
 
 
 def check_df_gemv(dev, gen):
@@ -2995,7 +2924,7 @@ def main() -> None:
             check_dd_chol_solve(dev, gen),
             check_dd_panel_chol(dev, gen), check_dd_residual_f32(dev, gen),
             check_psd_coo(dev, gen, torch.float32),
-            check_ldl_masked_f32(dev, gen)]
+            check_ldl_masked(dev, gen, torch.float32)]
     rows += check_df_gemv(dev, gen)
     rows += check_jacobi(dev, gen)
     rows += check_panel_kernels(dev, gen)
@@ -3135,8 +3064,9 @@ def main() -> None:
     rows += check_tile_kernels(tile_plans, dev, gen, rng,
                                dtype=torch.float32)
     check_library_rows(dev, gen, rng, plans)
-    print("K12 launches per variant over the paths: " + json.dumps(
-        {k: v for k, v in total.items() if ":" in k}), flush=True)
+    print("K3, K12 and K13 launches per variant over the paths: "
+          + json.dumps({k: v for k, v in total.items() if ":" in k}),
+          flush=True)
     for row in rows:
         count = row.pop("count", row["name"])
         row["launches"] = total.get(count, 0)

@@ -2,7 +2,7 @@
 kernels, on one card.
 
     python3 parent_bench.py --parent DIR
-        [--cases tiles,panels,dd,k13,gemv,schur,twins,solves]
+        [--cases tiles,panels,dd,k13,gemv,schur,ldl,twins,solves]
         [--plans lp20k,sdp5k,sdp1200]
         [--problems arch0,control07] [--repeat N]
 
@@ -53,8 +53,12 @@ mean and runs.  The cases (all by default):
   product), K4 at the dd64 path's shapes (chip_smoke.K4_SHAPES), and
   form_dd and dd_chol at control07 and arch0 with each build's K4
   launches, the builds bit for bit equal everywhere;
-* twins: arch0 and control07 solved by each build with deterministic
-  algorithms, x and y bit for bit equal;
+* ldl: K3 and K3-f32 at 3, 124, 174 and 666 (LDL_ORDERS), the builds bit
+  for bit equal, events and graph replay, the m = 3 eager call on the
+  host clock, and this build's other plans (LDL_SWEEP) in graph replay;
+* twins: arch0 and control07, and nb+zero-row and lp900+3dense under
+  'auto' and 'mixed' (K3 and K3-f32 launching), solved by each build with
+  deterministic algorithms, x and y bit for bit equal;
 * solves: whole solves of --problems (bundled examples) under 'auto' and
   'mixed' (a warm-up solve each first), the turns repeated --repeat
   times: each build's wall, iterations, phases with their walls, rel and
@@ -677,6 +681,76 @@ def schur_case(old, dev, args) -> dict:
     return out
 
 
+# -------------------------------------------------------------------- ldl
+
+# K3's orders: lp900+3dense's capacitance, nb+zero-row's ADA, arch0's
+# Schur order and control07's (the device variant)
+LDL_ORDERS = (3, 124, 174, 666)
+# this build's other plans, timed beside ldl_plan's choice
+LDL_SWEEP = {124: [("shared", 1, w) for w in (4, 6, 8, 12, 16)],
+             174: [("shared", 1, w) for w in (4, 6, 8, 12, 16)],
+             666: [("device", b, w) for b in (16, 32, 67, 132)
+                   for w in (1, 2, 4, 8)]}
+
+
+def k3_same(f, g) -> bool:
+    """Two LdlFactors bit for bit equal (L, d, skip, diagadd)."""
+    import chip_smoke as cs
+
+    return torch.equal(f.skip, g.skip) and all(
+        cs.bit_diff(a, b)[0] for a, b in ((f.L, g.L), (f.d, g.d),
+                                          (f.diagadd, g.diagadd)))
+
+
+def ldl_case(old, dev, args) -> dict:
+    """K3 and K3-f32 of both builds at LDL_ORDERS on
+    chip_smoke.indefinite_matrix (m = 3: B B' + I, the capacitance's
+    kind), the builds bit for bit equal (L, d, skip, diagadd): events and
+    graph replay in turns, the m = 3 eager call on the host clock
+    (host_us), and this build's plan at each order beside the other plans
+    of LDL_SWEEP (graph replay, bit for bit the chosen plan)."""
+    import chip_smoke as cs
+    from sedumi_tpu_torch import chol
+
+    ochol = old_module("chol")
+    gen = torch.Generator().manual_seed(20261018)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for m in LDL_ORDERS:
+            if m > 3:
+                M = cs.indefinite_matrix(m, gen)
+            else:
+                B = torch.randn(m, m, generator=gen, dtype=torch.float64)
+                M = B @ B.T + torch.eye(m, dtype=torch.float64)
+            M = M.to(dtype).to(dev)
+            calls = {"earlier": lambda: ochol.ldl_masked(M),
+                     "this": lambda: chol.ldl_masked(M)}
+            got = {w: c() for w, c in calls.items()}
+            if not k3_same(got["this"], got["earlier"]):
+                cs.fail(f"the builds' K3 differ at m={m} {dtype}")
+            plan = chol.ldl_plan(m, dtype)
+            row = turns(calls)
+            row["plan"] = plan
+            row["skipped"] = int(got["this"].skip.sum())
+            if m == 3:
+                row["host_us"] = {w: host_us(c, 2000)
+                                  for w, c in calls.items()}
+            graph = row["graph_ms"]["this"]
+            row["us_per_column"] = None if graph is None \
+                else 1e3 * graph / m
+            sweep = {}
+            for p in LDL_SWEEP.get(m, []):
+                def call(p=p):
+                    return chol._ldl_cuda(M, 1e-12, 5e5, 1e-20, True, p)
+                if not k3_same(call(), got["this"]):
+                    cs.fail(f"K3 plan {p} differs at m={m} {dtype}")
+                sweep[":".join(map(str, p))] = cs.try_graph_ms(str(p), call)
+            if sweep:
+                row["sweep_graph_ms"] = sweep
+            report(out, f"K3 {dtype} m={m}", row)
+    return out
+
+
 # ----------------------------------------------------------------- solves
 
 
@@ -700,11 +774,36 @@ def solve(pkg, name: str, pars: dict, xy: bool = False) -> dict:
     return out
 
 
+def twin_problems() -> list:
+    """(label, (A, b, c, K), pars, the K3 build it must launch or None):
+    arch0 and control07 ('auto': f64, then dd64), and the solves that take
+    K3: nb with a redundant zero row (its singular ADA) and the LP with
+    three dense columns (its Woodbury capacitance), 'auto' (K3) and
+    'mixed' (K3-f32)."""
+    import chip_smoke as cs
+    from sedumi_tpu_torch.examples import load_example
+
+    out = []
+    for name in ("arch0", "control07"):
+        ex = load_example(name)
+        out.append((name, (ex.At, ex.b, ex.c, ex.K), {"fid": 0}, None))
+    nbz = cs.with_zero_row(load_example("nb"))
+    make, lp_pars = next((mk, p) for n, mk, p, _ in cs.SPARSE_SOLVES
+                         if n == "lp900+3dense")
+    lp = make(np.random.default_rng(12345))
+    for tag, pars, k3 in (("auto", {}, "ldl_masked"),
+                          ("mixed", {"dtype": "mixed"}, "ldl_masked_f32")):
+        out.append((f"nb+zero-row {tag}", (nbz.At, nbz.b, nbz.c, nbz.K),
+                    {"fid": 0, **pars}, k3))
+        out.append((f"lp900+3dense {tag}", lp, {**lp_pars, **pars}, k3))
+    return out
+
+
 def twins_case(old, dev, args) -> dict:
-    """arch0 and control07 ('auto': f64, then dd64) by each build with
-    deterministic algorithms (index_add_ in order, as
-    chip_smoke.check_dd64_twins): x and y must agree bit for bit, and with
-    them the phases' iterations and rel."""
+    """twin_problems by each build with deterministic algorithms (index_add_
+    in order, as chip_smoke.check_dd64_twins): x and y must agree bit for
+    bit, and with them the phases' iterations; the K3 solves must launch
+    their K3 build in both."""
     import warnings
 
     import sedumi_tpu_torch as st
@@ -716,14 +815,29 @@ def twins_case(old, dev, args) -> dict:
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            for name in ("arch0", "control07"):
-                runs = {who: solve(pkg, name, {}, xy=True)
-                        for who, pkg in (("earlier", old), ("this", st))}
+            for label, prob, pars, k3 in twin_problems():
+                runs = {}
+                for who, pkg in (("earlier", old), ("this", st)):
+                    before = dict(pkg.kernels.LAUNCHES)
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    x, y, info = pkg.sedumi(*prob, pars, device="cuda")
+                    torch.cuda.synchronize()
+                    runs[who] = dict(
+                        x=x, y=y, wall_s=time.time() - t0,
+                        iter=info["iter"], numerr=info["numerr"],
+                        phases=info["phases"],
+                        k3_launches={k: pkg.kernels.LAUNCHES[k] - before[k]
+                                     for k in ("ldl_masked",
+                                               "ldl_masked_f32")})
                 e, t = runs["earlier"], runs["this"]
                 if not (np.array_equal(e["x"], t["x"])
                         and np.array_equal(e["y"], t["y"])):
-                    cs.fail(f"{name} deterministic: the builds land apart")
-                report(out, f"{name} deterministic", {
+                    cs.fail(f"{label} deterministic: the builds land apart")
+                if k3 and not (e["k3_launches"][k3] and
+                               t["k3_launches"][k3]):
+                    cs.fail(f"{label}: {k3} did not launch in both builds")
+                report(out, f"{label} deterministic", {
                     who: {k: v for k, v in r.items() if k not in ("x", "y")}
                     for who, r in runs.items()})
     finally:
@@ -758,7 +872,7 @@ def solves_case(old, dev, args) -> dict:
 
 CASES = {"tiles": tiles_case, "panels": panels_case, "dd": dd_case,
          "k13": k13_case, "gemv": gemv_case, "schur": schur_case,
-         "twins": twins_case, "solves": solves_case}
+         "ldl": ldl_case, "twins": twins_case, "solves": solves_case}
 
 
 def main() -> None:

@@ -10,7 +10,9 @@ blkchol2.c, a supernodal LDL' that never fails):
 * ldl_masked -- kernel K3: LDL' with the canceltol add / maxu skip pivot
   rules (blkchol2.c:96-167), the fallback when the Cholesky fails.  On a
   CUDA tensor it launches csrc/ldl_masked.cu (its f64 build, or K3-f32 for
-  an f32 matrix; it raises if it cannot); on a CPU tensor it runs
+  an f32 matrix) in the variant ldl_plan picks from the order and dtype
+  (one warp, one block over shared memory, or a grid over device memory;
+  a plan the card refuses raises); on a CPU tensor it runs
   ldl_masked_plain.
 """
 
@@ -21,6 +23,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import kernels
+from .lax_eigh import NUM_SMS, SMEM_MAX, _sm_count
 from .linalg_ops import cholesky
 
 
@@ -124,33 +127,97 @@ def ldl_masked_plain(M: torch.Tensor, canceltol: float = 1e-12,
     return LdlFactor(L=L, d=d, skip=skip, diagadd=diagadd)
 
 
+# K3's variants (csrc/ldl_masked.cu), their C codes in that order
+LDL_VARIANTS = ("warp", "shared", "device")
+WARP_MAX_M = 32       # the warp variant's largest order: a lane a row
+# the shared variant's columns a warp, 4 to 16 warps; the device variant's
+# warps a block and columns a block (parent_bench.py --cases ldl's sweep)
+SHARED_COLS, SHARED_WARPS = 16, (4, 16)
+DEVICE_WARPS, DEVICE_COLS = 2, 10
+
+
+def ldl_smem_bytes(m: int, dtype: torch.dtype) -> int:
+    """Shared memory of K3's shared variant at order m: the packed lower
+    triangle and the progress counter."""
+    size = 4 if dtype == torch.float32 else 8
+    return size * (m * (m + 1) // 2) + 4
+
+
+def ldl_plan(m: int, dtype: torch.dtype, sms: int = NUM_SMS
+             ) -> tuple[str, int, int]:
+    """(variant, blocks, warps a block) of K3 (K3-f32 for f32) at order m:
+    one warp up to WARP_MAX_M; one block holding the triangle in shared
+    memory while it fits (f64 up to 240, f32 up to 340), SHARED_COLS
+    columns a warp within SHARED_WARPS; else a cooperative grid over a
+    device-memory triangle, DEVICE_COLS columns a block of DEVICE_WARPS
+    warps (fewer where a warp's column buffer, m entries, would not fit),
+    at most one block an SM."""
+    if m < 1:
+        raise ValueError(f"ldl_plan: order {m} < 1")
+    if m <= WARP_MAX_M:
+        return "warp", 1, 1
+    if ldl_smem_bytes(m, dtype) <= SMEM_MAX:
+        lo, hi = SHARED_WARPS
+        return "shared", 1, min(hi, max(lo, -(-m // SHARED_COLS)))
+    size = 4 if dtype == torch.float32 else 8
+    warps = max(1, min(DEVICE_WARPS, SMEM_MAX // (size * m)))
+    return "device", min(sms, -(-m // DEVICE_COLS)), warps
+
+
+_LDL_NAMES = {torch.float64: "ldl_masked", torch.float32: "ldl_masked_f32"}
+
+
+def _ldl_cuda(M: torch.Tensor, canceltol: float, maxu: float, abstol: float,
+              skip_pivots: bool, plan: tuple[str, int, int] | None = None
+              ) -> LdlFactor:
+    """K3 (K3-f32) on the card with `plan` (default ldl_plan's); a plan the
+    card refuses raises.  M is read through its row stride, never
+    written; the kernel writes all of L (one allocation with d and
+    diagadd)."""
+    m = M.shape[0]
+    name = _LDL_NAMES.get(M.dtype)
+    if name is None or M.shape != (m, m):
+        raise ValueError(f"ldl_masked needs a square f64 or f32 matrix, "
+                         f"got {tuple(M.shape)} {M.dtype}")
+    if m and M.stride(1) != 1:
+        M = M.contiguous()
+    kernels.check_cuda(M, contiguous=False)
+    dt, dev = M.dtype, M.device
+    L, d, diagadd = torch.empty(m * (m + 2), dtype=dt, device=dev).split(
+        [m * m, m, m])
+    L = L.view(m, m)
+    skip = torch.empty(m, dtype=torch.uint8, device=dev)
+    out = LdlFactor(L=L, d=d, skip=skip.view(torch.bool), diagadd=diagadd)
+    if m == 0:
+        return out
+    if plan is None:
+        plan = ldl_plan(m, dt)
+        if plan[0] == "device":
+            plan = ldl_plan(m, dt, _sm_count(dev))
+    variant, blocks, warps = plan
+    tri = prog = None
+    if variant == "device":
+        tri = torch.empty(m * (m + 1) // 2, dtype=dt, device=dev)
+        prog = torch.zeros(1, dtype=torch.int32, device=dev)
+    kernels.launch("ldl_masked.cu", name + "_launch", M.data_ptr(),
+                   M.stride(0), L.data_ptr(), d.data_ptr(), skip.data_ptr(),
+                   diagadd.data_ptr(),
+                   None if tri is None else tri.data_ptr(),
+                   None if prog is None else prog.data_ptr(), m,
+                   float(canceltol), float(maxu), float(abstol),
+                   int(bool(skip_pivots)), LDL_VARIANTS.index(variant),
+                   blocks, warps)
+    kernels.count(name, f"{m}", variant)
+    return out
+
+
 def ldl_masked(M: torch.Tensor, canceltol: float = 1e-12, maxu: float = 5e5,
                abstol: float = 1e-20, skip_pivots: bool = True) -> LdlFactor:
-    """Masked LDL' (kernel K3 on the card, K3-f32 for an f32 matrix); see
-    ldl_masked_plain."""
+    """Masked LDL' (kernel K3 on the card, K3-f32 for an f32 matrix, in
+    ldl_plan's variant); see ldl_masked_plain."""
     if not M.is_cuda:
         return ldl_masked_plain(M, canceltol, maxu, abstol, skip_pivots)
-    m = M.shape[0]
-    if M.shape != (m, m):
-        raise ValueError(f"ldl_masked needs a square matrix, got "
-                         f"{tuple(M.shape)}")
-    A = M.contiguous().clone()
-    f32 = A.dtype == torch.float32
-    kernels.check_cuda(A, dtype=torch.float32 if f32 else torch.float64)
-    L = torch.zeros(m, m, dtype=A.dtype, device=A.device)
-    d = torch.empty(m, dtype=A.dtype, device=A.device)
-    skip = torch.empty(m, dtype=torch.uint8, device=A.device)
-    diagadd = torch.empty(m, dtype=A.dtype, device=A.device)
-    absd = torch.abs(torch.diagonal(A)).contiguous()
-    col = torch.empty(m, dtype=A.dtype, device=A.device)
-    name = "ldl_masked_f32" if f32 else "ldl_masked"
-    kernels.launch("ldl_masked.cu", name + "_launch",
-                   A.data_ptr(), L.data_ptr(), d.data_ptr(),
-                   skip.data_ptr(), diagadd.data_ptr(), absd.data_ptr(),
-                   col.data_ptr(), m, float(canceltol), float(maxu),
-                   float(abstol), int(bool(skip_pivots)))
-    kernels.count(name, f"{m}")
-    return LdlFactor(L=L, d=d, skip=skip.bool(), diagadd=diagadd)
+    return _ldl_cuda(M, canceltol, maxu, abstol, skip_pivots)
 
 
 def ldl_solve(f: LdlFactor, b: torch.Tensor) -> torch.Tensor:

@@ -50,10 +50,10 @@ SOURCES = {
         "psd_pair_launch": [_P] * 9 + [_LL, _I, _I, _P],
         "psd_pair_f32_launch": [_P] * 9 + [_LL, _I, _I, _P]},
     "ldl_masked.cu": {
-        "ldl_masked_launch": [_P, _P, _P, _P, _P, _P, _P, _I,
-                              _D, _D, _D, _I, _P],
-        "ldl_masked_f32_launch": [_P, _P, _P, _P, _P, _P, _P, _I,
-                                  _D, _D, _D, _I, _P]},
+        "ldl_masked_launch": [_P, _LL] + [_P] * 6 + [_I, _D, _D, _D]
+        + [_I] * 4 + [_P],
+        "ldl_masked_f32_launch": [_P, _LL] + [_P] * 6 + [_I, _D, _D, _D]
+        + [_I] * 4 + [_P]},
     "dd_split.cu": {
         "ozaki_split_launch": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P]},
     "dd_elem.cu": {
@@ -112,8 +112,9 @@ LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "dist_panel_chol": 0, "dist_trisolve_fwd": 0,
             "dist_trisolve_bwd_contrib": 0, "dist_trisolve_bwd_solve": 0}
 
-# launches per variant and order of K12 and K13 (lax_eigh.variant_key)
-# and per shape of K2, K3 and K4 ("name@shape", count), beside LAUNCHES
+# launches per variant and order of K12 and K13 (lax_eigh.variant_key),
+# per shape of K2 and K4 ("name@shape", count) and per variant and order
+# of K3 ("name:variant@m"), beside LAUNCHES
 VARIANT_LAUNCHES: dict[str, int] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -127,11 +128,11 @@ def reset_launch_counts() -> None:
     VARIANT_LAUNCHES.clear()
 
 
-def count(name: str, shape: str) -> None:
+def count(name: str, shape: str, variant: str | None = None) -> None:
     """One launch of kernel `name` at `shape` (LAUNCHES and
-    VARIANT_LAUNCHES["name@shape"])."""
+    VARIANT_LAUNCHES["name@shape"], or "name:variant@shape")."""
     LAUNCHES[name] += 1
-    key = f"{name}@{shape}"
+    key = f"{name}:{variant}@{shape}" if variant else f"{name}@{shape}"
     VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 

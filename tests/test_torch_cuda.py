@@ -22,6 +22,8 @@ import scipy.sparse as sp
 import torch
 
 import dd_emulation as ddemu
+import ldl_emulation as ldlemu
+from ldl_emulation import indefinite
 import psd_emulation as psdemu
 import sedumi_tpu_torch as st
 import tile_emulation as emu
@@ -57,21 +59,6 @@ def residual_case(m, seed):
     M = 0.5 * (M + M.T)
     rhs = rng.standard_normal(m)
     return M, np.linalg.solve(M, rhs), rhs
-
-
-def indefinite(m, seed):
-    """SPD part plus decoupled negative pivots (add only) and coupled ones
-    (add, then skip)."""
-    rng = np.random.default_rng(seed)
-    B = rng.standard_normal((m, m))
-    M = B @ B.T / m + np.eye(m)
-    for j in range(3, m, 11):
-        M[j, :] = 0.0
-        M[:, j] = 0.0
-        M[j, j] = -1.0
-    for j in range(7, m, 13):
-        M[j, j] = -1.0
-    return M
 
 
 def sparse_sdp(seed):
@@ -134,16 +121,166 @@ def test_psd_contrib_coo_kernel(cuda, seed):
             Bp.abs().max())
 
 
+# K3's orders: m = 1, both sides of each variant edge (chol.ldl_plan: the
+# warp up to 32, shared memory up to 240 in f64 and 340 in f32), the
+# path's 12-174 and control07's 666 (the device variant)
+K3_F64_ORDERS = [1, 12, 32, 33, 174, 240, 241, 666]
+K3_F32_ORDERS = [1, 12, 32, 33, 174, 340, 341, 666]
+
+
+def nan_bits_equal(a, b) -> bool:
+    """Equal bits but where both are NaN (the card's NaN payloads are its
+    own)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    a, b = a.contiguous(), b.contiguous()
+    nan = torch.isnan(a)
+    ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.view(ints)[~nan], b.view(ints)[~nan])
+
+
+def k3_against_twins(M, **kw):
+    """K3 (K3-f32) on M, called twice: both calls bit for bit
+    ldl_masked_plain and the emulation of its schedule
+    (tests/ldl_emulation.py), M unchanged, one launch a call counted
+    under ldl_plan's variant."""
+    m = M.shape[0]
+    name = "ldl_masked_f32" if M.dtype == torch.float32 else "ldl_masked"
+    variant, blocks, warps = chol.ldl_plan(m, M.dtype)
+    key = f"{name}:{variant}@{m}"
+    M0 = M.clone()
+    n0 = kernels.LAUNCHES[name]
+    v0 = kernels.VARIANT_LAUNCHES.get(key, 0)
+    fk = chol.ldl_masked(M, **kw)
+    fk2 = chol.ldl_masked(M, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 2
+    assert kernels.VARIANT_LAUNCHES.get(key, 0) == v0 + 2
+    assert nan_bits_equal(M, M0)
+    fp = chol.ldl_masked_plain(M, **kw)
+    fe = [torch.as_tensor(x, device=M.device) for x in ldlemu.ldl(
+        M.cpu().numpy(), nw=blocks * warps, **kw)]
+    assert fk.L.dtype == M.dtype and fk.skip.dtype == torch.bool
+    for a, a2, b, e in zip(fk, fk2, fp, fe):
+        assert nan_bits_equal(a, b) and nan_bits_equal(a2, b)
+        assert nan_bits_equal(a, e)
+    return fp
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [12, 174])
+@pytest.mark.parametrize("m", K3_F64_ORDERS)
 def test_ldl_masked_kernel(cuda, m):
-    """The masks and the factor agree bit for bit with the plain twin."""
+    """K3 in each variant: the masks and the factor bit for bit the plain
+    twin and the emulation, twice, M untouched."""
     M = torch.as_tensor(indefinite(m, 3), device=cuda)
-    fk = chol.ldl_masked(M)
-    fp = chol.ldl_masked_plain(M)
-    assert bool(fp.skip.any())
-    for a, b in zip(fk, fp):
-        assert torch.equal(a, b)
+    fp = k3_against_twins(M)
+    if m >= 12:
+        assert bool(fp.skip.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [12, 174, 666])
+def test_ldl_masked_nan_matrix(cuda, m, dtype):
+    """A NaN entry below the diagonal, a NaN pivot, a +inf pivot and a
+    zero row: the same NaNs, masks and bits as the plain twin."""
+    M = indefinite(m, 5)
+    M[m // 2 + 1, m // 3] = np.nan
+    M[m // 4, m // 4] = np.nan
+    M[m - 2, m - 2] = np.inf
+    M[1, :] = 0.0
+    M[:, 1] = 0.0
+    k3_against_twins(torch.as_tensor(M, dtype=dtype, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("m", [40, 400])
+@pytest.mark.parametrize("case", ldlemu.CASES)
+def test_ldl_masked_adversarial(cuda, case, m, dtype):
+    """tests/test_torch_ldl.py's adversarial columns (NaN, inf, subnormal,
+    zero and cancelled pivots, all skipped, no skipping) on the kernel, in
+    the shared and the device variant."""
+    M, kw = ldlemu.adversarial(case, dtype, m)
+    k3_against_twins(torch.as_tensor(M, device=cuda), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,emax", [(np.float64, 250),
+                                        (np.float32, 30)])
+@pytest.mark.parametrize("m", [12, 174, 666])
+def test_ldl_masked_scaled_quotients(cuda, m, dtype, emax):
+    """Quotients over the whole exponent range (S A S, skip_pivots=False so
+    every one shows in L): the kernel's reciprocal-and-corrections rule and
+    its division fallback give the division's bits."""
+    M = ldlemu.scaled(m, dtype, emax, seed=m)
+    k3_against_twins(torch.as_tensor(M, device=cuda), skip_pivots=False)
+
+
+def quotient_cases(dtype, m, seed):
+    """(divisor, dividends) pairs whose mantissas are the hard cases of a
+    reciprocal-based division (all ones, 1, 1 + ulp, 2 - ulp, random),
+    over the exponent range, some outside the kernel's fast range."""
+    rng = np.random.default_rng(seed)
+    f = np.finfo(dtype)
+    edge = np.array([1.0, np.nextafter(dtype(1), dtype(2)),
+                     np.nextafter(dtype(2), dtype(1)), 1.5], dtype=dtype)
+    emax = 60 if dtype == np.float32 else 500
+    ds = np.concatenate([edge, rng.uniform(1, 2, 4).astype(dtype)])
+    ds = np.concatenate([ds, ds * dtype(2.0 ** -(emax // 4)),
+                         ds * dtype(2.0 ** (emax // 4))])
+    for d in ds:
+        mant = np.concatenate([np.resize(edge, m // 2),
+                               rng.uniform(1, 2, m - m // 2)]).astype(dtype)
+        e = rng.integers(-emax, emax + 1, m).astype(np.float64)
+        x = (mant * np.exp2(e) * rng.choice([-1, 1], m)).astype(dtype)
+        x[:4] = [0.0, -0.0, f.tiny, f.max / 4]
+        yield dtype(d), x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("m", [32, 240, 300])
+def test_ldl_masked_quotient_rule(cuda, m, dtype):
+    """Column 0 of I with [d; x] in it (lb = 0, no skipping) divides x by d
+    alone: L[1:, 0] is the card's division x / d bit for bit, for divisors
+    and dividends at the edge mantissas and exponents of the kernel's
+    reciprocal-and-corrections rule, in the warp and the shared variant
+    and (f64 at 300) the device variant's chunked column; the rest of the
+    factor as the plain twin and the emulation."""
+    kw = dict(canceltol=0.0, abstol=0.0, skip_pivots=False)
+    for d, x in quotient_cases(dtype, m - 1, m):
+        M = np.eye(m, dtype=dtype)
+        M[0, 0] = d
+        M[1:, 0] = M[0, 1:] = x
+        Mt = torch.as_tensor(M, device=cuda)
+        k3_against_twins(Mt, **kw)
+        L = chol.ldl_masked(Mt, **kw).L
+        assert nan_bits_equal(L[1:, 0], Mt[1:, 0] / Mt[0, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,plan", [(33, ("warp", 1, 1)),
+                                    (241, ("shared", 1, 16)),
+                                    (174, ("shared", 1, 17)),
+                                    (174, ("shared", 2, 8)),
+                                    (666, ("device", 4, 9)),
+                                    (666, ("device", 100000, 2))])
+def test_ldl_masked_refused_plan(cuda, m, plan):
+    """A plan the card refuses (a warp past 32 rows, shared memory past
+    227 KB, more warps than a variant's launch bound, a second block, a
+    grid that cannot be resident) raises, launches nothing, and leaves no
+    error behind."""
+    M = torch.as_tensor(indefinite(m, 3), device=cuda)
+    n0 = dict(kernels.LAUNCHES)
+    v0 = dict(kernels.VARIANT_LAUNCHES)
+    with pytest.raises(RuntimeError):
+        chol._ldl_cuda(M, 1e-12, 5e5, 1e-20, True, plan)
+    assert kernels.LAUNCHES == n0 and kernels.VARIANT_LAUNCHES == v0
+    k3_against_twins(M)
 
 
 def bits_equal(a, b) -> bool:
@@ -209,18 +346,25 @@ def test_psd_contrib_coo_f32_kernel(cuda, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [12, 174])
+@pytest.mark.parametrize("m", K3_F32_ORDERS)
 def test_ldl_masked_f32_kernel(cuda, m):
-    """K3-f32: masks, pivots and factor bit for bit with the f32 twin."""
+    """K3-f32 in each variant: masks, pivots and factor bit for bit the f32
+    twin and the emulation, twice, M untouched."""
     M = torch.as_tensor(indefinite(m, 3), dtype=torch.float32, device=cuda)
-    n0 = kernels.LAUNCHES["ldl_masked_f32"]
-    fk = chol.ldl_masked(M)
-    assert kernels.LAUNCHES["ldl_masked_f32"] == n0 + 1
-    fp = chol.ldl_masked_plain(M)
-    assert bool(fp.skip.any()) and fk.L.dtype == torch.float32
-    assert torch.equal(fk.skip, fp.skip)
-    for a, b in ((fk.L, fp.L), (fk.d, fp.d), (fk.diagadd, fp.diagadd)):
-        assert bits_equal(a, b)
+    fp = k3_against_twins(M)
+    if m >= 12:
+        assert bool(fp.skip.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ldl_masked_strided_rows(cuda, dtype):
+    """M read through its row stride (ADA is a view of the augmented
+    Schur complement): bit for bit the plain twin on the same view."""
+    m = 124
+    Maug = torch.as_tensor(np.pad(indefinite(m, 3), ((0, 1), (0, 1))),
+                           dtype=dtype, device=cuda)
+    k3_against_twins(Maug[:m, :m])
 
 
 @pytest.mark.cuda
