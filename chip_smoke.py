@@ -26,7 +26,10 @@
    distributed Cholesky) and K15 (the distributed substitution's three
    steps), at OH's and nb's panel shapes within 1e-12 of max|L| and of
    max|x|, with a non-PD block giving NaN, and bit for bit equal to the
-   emulation of their order (tests/panel_emulation.py); times each, K14
+   emulation of their order (tests/panel_emulation.py), and so their f32
+   builds K14-f32 and K15-f32 (the f32 phase under a mesh; a matrix of
+   cond 1e3, within PANEL_TOL_F32 of their f32 plain versions, bit for bit
+   the emulation run in float32); times each, K14
    over the columns of one factor, back to back and (K1, K1-f32, K6,
    the K6 solve, K11, K14, K15) as the replay of a captured CUDA graph,
    beside one library call for the same work (two for K15's forward
@@ -93,17 +96,28 @@
    each plan; K9's work at each plan's widest level is printed.
 6. Mesh path (pars.mesh_shape, MESH_SOLVES): OH at full size with
    {"panels": 2} on two ranks and nb with {"hosts": 2, "panels": 2} on
-   four, all sharing this card under gloo (parallel.launch.run_spmd).
-   Every rank must return the same solution and launch K14 and K15, and
-   none the dd64 kernels or K3; OH must land within 1e-6 (1 + |c'x|) of
-   path 2's unsharded c'x with pinf = dinf = 0, numerr < 2, nb must pass
-   the reference gate.  Each prints its wall, iterations, launches per
-   rank and the collectives' share of the wall.
+   four, then nb on that mesh under 'mixed' (the mesh's ladder: f32,
+   hybrid, host64, no dd64), all sharing this card under gloo
+   (parallel.launch.run_spmd).  Every rank must return the same solution
+   and launch K14 and K15, and none the dd64 kernels or K3; the 'mixed'
+   solve must take the f32 phase and launch K14-f32 and K15-f32 on every
+   rank; OH must land within 1e-6 (1 + |c'x|) of path 2's unsharded c'x
+   with pinf = dinf = 0, numerr < 2, nb must pass the reference gate.
+   Each prints its wall, iterations, phases, launches per rank and the
+   collectives' share of the wall.
+7. pars.profile, pars.debug and the CLI: info["profile"] of arch0 (dense,
+   f64), arch0 'mixed' (the f32 bundle, its scaling on K12-f32) and
+   sdp1200 (sparse), each printed on a line of its own, every key of the
+   reference's set positive and finite; nb solved with and without
+   pars.debug=1 under deterministic algorithms, bit for bit the same;
+   then `python -m sedumi_tpu_torch` in subprocesses on examples/arch0.mat
+   and on arch0 written to sparse SDPA by the port's write_sdpa, both
+   exiting 0 at the reference gate and at the same c'x.
    Launch counts are zeroed just before each path (in every rank for the
    mesh path) and read just after; every kernel must have launched on the
    paths, but for the builds no card solve reaches (OFF_PATH: the f64 and
    complex Jacobi), which the kernel phase holds alone.
-7. Prints the library rows (B5, B11, B9's dd_gemm, B7/B8: times and
+8. Prints the library rows (B5, B11, B9's dd_gemm, B7/B8: times and
    bounds of the routines left to the library) as one JSON line,
    {"kernels": [...]}, the card's name and power limit, and as the last
    line {"ok": true, "device": {...}}.  Any failure exits non-zero before
@@ -1659,14 +1673,25 @@ def check_jacobi(dev, gen):
 # and nb with {"hosts": 2, "panels": 2} (m = 123: bs 32, mp 128, nb 4)
 PANEL_SHAPES = ((128, 1024), (32, 128))
 PANEL_TOL = 1e-12        # of max|L| (K14) and of max|x| (K15)
+# K14-f32/K15-f32 against their plain versions: PANEL_TOL scaled by the
+# f32/f64 epsilon ratio (the two orders round apart by ~cond(Ljj) eps)
+PANEL_TOL_F32 = PANEL_TOL * 2.0**29
+# per dtype: the test matrix's condition number, the tolerance against
+# the plain versions (of max|L|, max|x|), against torch.linalg.cholesky
+# (of max|L|) and of the solve's residual (of max|b|)
+PANEL_CASE = {torch.float64: dict(cond=1e6, tol=PANEL_TOL, fac=1e-8,
+                                  resid=1e-8),
+              torch.float32: dict(cond=1e3, tol=PANEL_TOL_F32, fac=1e-4,
+                                  resid=1e-4)}
 
 
-def panel_spd(mp: int, gen, dev) -> torch.Tensor:
-    """A Jacobi-scaled SPD matrix of cond ~1e6, as the panel engine
-    factors (unit diagonal)."""
-    M = spd_with_cond(mp, 1e6, gen)
+def panel_spd(mp: int, gen, dev, dtype=torch.float64,
+              cond: float = 1e6) -> torch.Tensor:
+    """A Jacobi-scaled SPD matrix of the given condition number (~1e6 by
+    default), as the panel engine factors (unit diagonal), in `dtype`."""
+    M = spd_with_cond(mp, cond, gen)
     d = torch.sqrt(torch.diagonal(M))
-    return (M / (d[:, None] * d[None, :])).to(dev)
+    return (M / (d[:, None] * d[None, :])).to(dtype).to(dev)
 
 
 def panel_columns(M: torch.Tensor, bs: int):
@@ -1706,16 +1731,18 @@ def panel_chain(L, b, bs: int, n: int, fwd, contrib, solve):
     return x
 
 
-def panel_case(bs: int, mp: int, gen, dev) -> dict:
+def panel_case(bs: int, mp: int, gen, dev, dtype=torch.float64) -> dict:
     """K14 on every block column and a non-PD diagonal block, and K15 in
     the full two-panel substitution, against their plain versions and
     bit for bit against the emulation of their order
-    (tests/panel_emulation.py); the errors and the launch deltas."""
+    (tests/panel_emulation.py), in `dtype` (the f32 builds for float32,
+    on a matrix of PANEL_CASE's condition number); the errors and the
+    launch deltas."""
     import panel_emulation as pe
     from sedumi_tpu_torch import kernels
     from sedumi_tpu_torch.parallel import panels as pn
 
-    M = panel_spd(mp, gen, dev)
+    M = panel_spd(mp, gen, dev, dtype, PANEL_CASE[dtype]["cond"])
     Cs, L = panel_columns(M, bs)
     nb = mp // bs
     lmax = float(L.abs().max())
@@ -1740,7 +1767,8 @@ def panel_case(bs: int, mp: int, gen, dev) -> dict:
                   and (got[:nb // 2] == 0).all())
     emu_ok = emu_ok and bit_diff(got.cpu(),
                                  pe.chol_column(bad.cpu(), nb // 2))[0]
-    b = torch.randn(mp, generator=gen, dtype=torch.float64).to(dev)
+    b = torch.randn(mp, generator=gen, dtype=torch.float64).to(dtype) \
+        .to(dev)
     x_k = panel_chain(L, b, bs, 2, pn.trisolve_fwd_step,
                       pn.trisolve_bwd_contrib, pn.trisolve_bwd_solve)
     emu_ok = emu_ok and bit_diff(x_k.cpu(),
@@ -1800,35 +1828,42 @@ def try_graph_ms(label: str, fn):
         return None
 
 
-def check_panel_kernels(dev, gen):
-    """K14 and K15 against their plain versions and, bit for bit, the
-    emulation of their order at the mesh path's shapes (PANEL_SHAPES),
-    then timed at OH's: back to back between CUDA events and as the
-    replay of a captured CUDA graph, each beside one library call (two
-    for the forward step) for the same work."""
+def check_panel_kernels(dev, gen, dtype=torch.float64):
+    """K14 and K15 (K14-f32 and K15-f32 for float32) against their plain
+    versions and, bit for bit, the emulation of their order at the mesh
+    path's shapes (PANEL_SHAPES), then timed at OH's: back to back
+    between CUDA events and as the replay of a captured CUDA graph, each
+    beside one library call (two for the forward step) for the same
+    work, in the same dtype."""
     from sedumi_tpu_torch.parallel import panels as pn
 
+    sfx = "_f32" if dtype == torch.float32 else ""
+    which = "K14-f32/K15-f32" if sfx else "K14/K15"
+    tol = PANEL_CASE[dtype]
+    item = torch.finfo(dtype).bits / 8
+    peak = PEAK_F32_PER_S if sfx else PEAK_F64_PER_S
     cases = {}
     for bs, mp in PANEL_SHAPES:
-        c = panel_case(bs, mp, gen, dev)
+        c = panel_case(bs, mp, gen, dev, dtype)
         nb = mp // bs
-        print(f"K14/K15 bs={bs} mp={mp}: K14 {c['rel_l']:.3e} of max|L| "
+        print(f"{which} bs={bs} mp={mp}: K14 {c['rel_l']:.3e} of max|L| "
               f"from its plain version ({c['fac']:.3e} from "
               f"torch.linalg.cholesky), K15 solve {c['rel_x']:.3e} of "
               f"max|x|, residual {c['resid']:.3e}, non-PD block NaN: "
               f"{c['nan_ok']}, bit for bit the emulation: {c['emu_ok']}, "
               f"launches {c['counts']}", flush=True)
-        want = {"dist_panel_chol": nb + 1, "dist_trisolve_fwd": nb,
-                "dist_trisolve_bwd_contrib": 2 * nb,
-                "dist_trisolve_bwd_solve": nb}
+        want = {"dist_panel_chol" + sfx: nb + 1,
+                "dist_trisolve_fwd" + sfx: nb,
+                "dist_trisolve_bwd_contrib" + sfx: 2 * nb,
+                "dist_trisolve_bwd_solve" + sfx: nb}
         if c["counts"] != want:
-            fail(f"K14/K15 launched {c['counts']}, expected {want}")
-        if not (c["rel_l"] <= PANEL_TOL and c["rel_x"] <= PANEL_TOL
-                and c["fac"] <= 1e-8 and c["resid"] <= 1e-8
+            fail(f"{which} launched {c['counts']}, expected {want}")
+        if not (c["rel_l"] <= tol["tol"] and c["rel_x"] <= tol["tol"]
+                and c["fac"] <= tol["fac"] and c["resid"] <= tol["resid"]
                 and c["nan_ok"]):
-            fail(f"K14/K15 disagree with their plain versions at bs={bs}")
+            fail(f"{which} disagree with their plain versions at bs={bs}")
         if not c["emu_ok"]:
-            fail(f"K14/K15 differ from tests/panel_emulation.py at bs={bs}")
+            fail(f"{which} differ from tests/panel_emulation.py at bs={bs}")
         cases[bs] = c
     # times at OH's shape: K14 over the nb columns of one factor (and on
     # column 0, the most blocks to solve), K15's forward step on the last
@@ -1856,8 +1891,8 @@ def check_panel_kernels(dev, gen):
     # column j reads C[j]'s lower triangle and the nb - 1 - j blocks below
     # and writes Lcol; a Cholesky of bs^3 / 3 flops and one solve of bs^3
     # flops a block below
-    col_work = [(8.0 * ((nb - 1 - j) * bs * bs + bs * (bs + 1) / 2
-                        + nb * bs * bs),
+    col_work = [(item * ((nb - 1 - j) * bs * bs + bs * (bs + 1) / 2
+                         + nb * bs * bs),
                  bs**3 / 3 + (nb - 1 - j) * float(bs)**3)
                 for j in range(nb)]
     spec = [
@@ -1876,14 +1911,14 @@ def check_panel_kernels(dev, gen):
              row[:, k0:], torch.addmv(bj, row[:, :k0], x[:k0],
                                       alpha=-1.0)[:, None], upper=False),
          # the row's first (nb - 1) bs + bs columns, x's first k0, b, xj
-         (8.0 * (bs * (k0 + bs) + k0 + 2 * bs), 2.0 * bs * k0 + bs * bs)),
+         (item * (bs * (k0 + bs) + k0 + 2 * bs), 2.0 * bs * k0 + bs * bs)),
         ("dist_trisolve_bwd_contrib", "sedumi_tpu_torch/csrc/panel_solve.cu",
          "sedumi_tpu/parallel/panels.py:117",
          lambda: pn.trisolve_bwd_contrib(L3, x, bs, nb_loc, 0),
          lambda: pn.trisolve_bwd_contrib_plain(L3, x, bs, nb_loc, 0),
          "x' L (one product)", lambda: x[nb_loc * bs:] @ L3[:, :bs],
          # the panel's column block 0 and its x segment, contrib
-         (8.0 * (nb_loc * bs * bs + nb_loc * bs + bs),
+         (item * (nb_loc * bs * bs + nb_loc * bs + bs),
           2.0 * nb_loc * bs * bs)),
         ("dist_trisolve_bwd_solve", "sedumi_tpu_torch/csrc/panel_solve.cu",
          "sedumi_tpu/parallel/panels.py:117",
@@ -1892,35 +1927,36 @@ def check_panel_kernels(dev, gen):
          "torch.linalg.solve_triangular",
          lambda: torch.linalg.solve_triangular(Ljj.T, b0[:, None],
                                                upper=True),
-         (8.0 * (bs * bs + 3 * bs), 1.0 * bs * bs)),
+         (item * (bs * bs + 3 * bs), 1.0 * bs * bs)),
     ]
     rows = []
     for name, src, rep, kern, plain, label, lib, (nbytes, flops) in spec:
+        name += sfx
         ms = cuda_ms(kern, 20)
         pms = cuda_ms(plain, 5)
         lms = cuda_ms(lib, 20)
         gms = graph_ms(kern)
         lgms = try_graph_ms(name, lib)
-        b_ms, b_by = bound_ms(nbytes, flops)
-        key = "err_l" if name == "dist_panel_chol" else "err_x"
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        key = "err_l" if name.startswith("dist_panel_chol") else "err_x"
         entry = dict(name=name, route="cuda", source=src, replaces=rep,
                      max_abs_err=max(cc[key] for cc in cases.values()),
                      ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=lms, graph_ms=gms, library_graph_ms=lgms,
                      library=label)
         what = f"the {nb} columns of one factor" \
-            if name == "dist_panel_chol" else "one step"
+            if key == "err_l" else "one step"
         print(f"{name} bs={bs} mp={mp}, {what}: {ms:.4g} ms (graph replay "
               f"{gms:.4g}; plain {pms:.4g}; {label}: {lms:.4g}, graph "
               f"replay {lgms}; bound {b_ms:.3g} by {b_by})", flush=True)
-        if name == "dist_panel_chol":
+        if key == "err_l":
             def col0():
                 return pn.panel_chol_step(Cs[0], 0)
 
             entry.update(column0_ms=cuda_ms(col0, 50),
                          column0_graph_ms=graph_ms(col0),
-                         column0_bound_ms=bound_ms(*col_work[0])[0])
-            print(f"dist_panel_chol column 0: {entry['column0_ms']:.4g} ms "
+                         column0_bound_ms=bound_ms(*col_work[0], peak)[0])
+            print(f"{name} column 0: {entry['column0_ms']:.4g} ms "
                   f"(graph replay {entry['column0_graph_ms']:.4g}; bound "
                   f"{entry['column0_bound_ms']:.3g})", flush=True)
         rows.append(entry)
@@ -2815,70 +2851,245 @@ def run_sparse(name, make, pars, gate, plans, tiles=TILE_F64):
 # process per mesh position, all on cuda:0 under gloo (NCCL refuses two
 # ranks on one card).  OH at full size with {"panels": 2} (bs 128, mp
 # 1024) and nb with {"hosts": 2, "panels": 2} (formation split over
-# "hosts", panels of bs 32 on "panels").
-# (example, mesh shape, ranks, gate): OH is held to the unsharded solve's
-# c'x, nb to the published optimum
-MESH_SOLVES = [("OH_2Pi_STO-6GN9r12g1T2", {"panels": 2}, 2, "unsharded"),
-               ("nb", {"hosts": 2, "panels": 2}, 4, "published")]
+# "hosts", panels of bs 32 on "panels"), then nb on that mesh under
+# 'mixed': the mesh's ladder [f32, hybrid, host64] (no dd64), its f32
+# phase on K14-f32/K15-f32.
+# (example, mesh shape, ranks, gate, the pars of each solve of the spawn):
+# OH is held to the unsharded solve's c'x, nb to the published optimum
+MESH_SOLVES = [("OH_2Pi_STO-6GN9r12g1T2", {"panels": 2}, 2, "unsharded",
+                ({},)),
+               ("nb", {"hosts": 2, "panels": 2}, 4, "published",
+                ({}, {"dtype": "mixed"}))]
 PANEL_KERNELS = ("dist_panel_chol", "dist_trisolve_fwd",
                  "dist_trisolve_bwd_contrib", "dist_trisolve_bwd_solve")
+PANEL_KERNELS_F32 = tuple(k + "_f32" for k in PANEL_KERNELS)
 OFF_MESH = ("ldl_masked", "ozaki_split", "dd_accumulate", "dd_gemv",
             "dd_chol_solve", "dd_panel_chol")
 
 
-def run_mesh(name, shape, nprocs, cx_unsharded=None):
-    """One mesh solve on nprocs ranks of this card.  Every rank must
-    return the same x and launch K14 and K15; none may launch the dd64
-    kernels or K3 (dd64 is off under a mesh, and the panel engine has no
-    LDL' fallback).  OH is held to the unsharded solve's c'x within
-    1e-6 (1 + |c'x|) with pinf = dinf = 0, numerr < 2; nb to the
-    reference gate.  Returns the launches summed over the ranks."""
+def run_mesh(name, shape, nprocs, cx_unsharded=None, pars_list=({},)):
+    """Mesh solves of `name` on nprocs ranks of this card, one for each
+    entry of pars_list, in one spawn (entry.rank_batch; each solve's
+    launch counts are zeroed in every rank just before it).  In each,
+    every rank must return the same x and launch K14 and K15; none may
+    launch the dd64 kernels or K3 (dd64 is off under a mesh, and the
+    panel engine has no LDL' fallback).  Under 'mixed' every rank must
+    also take the f32 phase and launch K14-f32 and K15-f32, and no phase
+    may be dd64.  OH is held to the unsharded solve's c'x within 1e-6
+    (1 + |c'x|) with pinf = dinf = 0, numerr < 2; nb to the reference
+    gate.  Returns the launches summed over the ranks and the solves."""
     from sedumi_tpu_torch.examples import load_example
     from sedumi_tpu_torch.parallel import entry
     from sedumi_tpu_torch.parallel.launch import run_spmd
 
     ex = load_example(name)
     t0 = time.time()
-    res = run_spmd(entry.rank_sedumi, nprocs,
-                   args=(("example", name), {"fid": 0, "mesh_shape": shape},
-                         "cuda"), device="cuda", timeout_s=600)
+    calls = [("rank_sedumi", (("example", name),
+                              {"fid": 0, "mesh_shape": shape, **pars}))
+             for pars in pars_list]
+    batch = run_spmd(entry.rank_batch, nprocs, args=(calls, "cuda"),
+                     device="cuda", timeout_s=600)
     spawn_wall = time.time() - t0
-    r0 = res[0]
-    info = r0["info"]
-    rel = max(abs(r0["cx"] - ex.optval), abs(r0["by"] - ex.optval)) \
-        / abs(ex.optval)
-    counts = {k: sum(r["launches"].get(k, 0) for r in res)
-              for k in set().union(*(r["launches"] for r in res))}
-    share = [r["comm_s"] / r["wall"] for r in res]
-    print(f"{name} {json.dumps(shape)} on {nprocs} ranks: "
-          f"iter={info['iter']} cx={r0['cx']!r} rel={rel:.3e} "
-          f"pinf={info['pinf']} dinf={info['dinf']} "
-          f"numerr={info['numerr']} wall={r0['wall']:.2f}s "
-          f"(spawn to results {spawn_wall:.2f}s) phases="
-          f"{json.dumps(r0['phases'])} phase walls per rank "
-          f"{[r['phase_wall'] for r in res]} collectives per rank "
-          f"{[r['comm_calls'] for r in res]}, share of the wall "
-          f"{[round(s, 4) for s in share]} launches per rank "
-          f"{[r['launches'] for r in res]}", flush=True)
-    if not all(np.array_equal(r["x"], r0["x"]) and
-               np.array_equal(r["y"], r0["y"]) for r in res):
-        fail(f"{name}: the ranks returned different solutions")
-    if not (np.all(np.isfinite(r0["x"])) and np.all(np.isfinite(r0["y"]))):
-        fail(f"{name}: non-finite solution on the mesh")
-    for r in res:
-        if any(r["launches"].get(k, 0) == 0 for k in PANEL_KERNELS):
-            fail(f"{name}: K14/K15 did not launch on every rank")
-        if any(r["launches"].get(k, 0) for k in OFF_MESH):
-            fail(f"{name}: dd64 or K3 launched under a mesh")
-    ok = info["pinf"] == 0 and info["dinf"] == 0 and info["numerr"] < 2
-    if cx_unsharded is not None:
-        ok = ok and abs(r0["cx"] - cx_unsharded) \
-            <= 1e-6 * (1.0 + abs(cx_unsharded))
-    else:
-        ok = ok and rel <= 1e-6
-    if not ok:
-        fail(f"{name} {json.dumps(shape)}: the mesh path's gate not met")
-    return counts
+    total = {}
+    for i, pars in enumerate(pars_list):
+        res = [b[i] for b in batch]
+        label = f"{name} {json.dumps(shape)}" \
+            + (f" {json.dumps(pars)}" if pars else "")
+        r0 = res[0]
+        info = r0["info"]
+        rel = max(abs(r0["cx"] - ex.optval), abs(r0["by"] - ex.optval)) \
+            / abs(ex.optval)
+        for r in res:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        share = [r["comm_s"] / r["wall"] for r in res]
+        print(f"{label} on {nprocs} ranks: "
+              f"iter={info['iter']} cx={r0['cx']!r} rel={rel:.3e} "
+              f"pinf={info['pinf']} dinf={info['dinf']} "
+              f"numerr={info['numerr']} wall={r0['wall']:.2f}s "
+              f"(the spawn's {len(pars_list)} solve(s), spawn to results "
+              f"{spawn_wall:.2f}s) phases="
+              f"{json.dumps(r0['phases'])} phase walls per rank "
+              f"{[r['phase_wall'] for r in res]} collectives per rank "
+              f"{[r['comm_calls'] for r in res]}, share of the wall "
+              f"{[round(s, 4) for s in share]} launches per rank "
+              f"{[r['launches'] for r in res]}", flush=True)
+        if not all(np.array_equal(r["x"], r0["x"]) and
+                   np.array_equal(r["y"], r0["y"]) for r in res):
+            fail(f"{label}: the ranks returned different solutions")
+        if not (np.all(np.isfinite(r0["x"]))
+                and np.all(np.isfinite(r0["y"]))):
+            fail(f"{label}: non-finite solution on the mesh")
+        for r in res:
+            if any(r["launches"].get(k, 0) == 0 for k in PANEL_KERNELS):
+                fail(f"{label}: K14/K15 did not launch on every rank")
+            if any(r["launches"].get(k, 0) for k in OFF_MESH):
+                fail(f"{label}: dd64 or K3 launched under a mesh")
+            if pars.get("dtype") == "mixed" and (
+                    any(r["launches"].get(k, 0) == 0
+                        for k in PANEL_KERNELS_F32)
+                    or "f32" not in r["phases"] or "dd64" in r["phases"]):
+                fail(f"{label}: no f32 phase on K14-f32/K15-f32 on every "
+                     f"rank, or a dd64 phase under a mesh")
+        ok = info["pinf"] == 0 and info["dinf"] == 0 and info["numerr"] < 2
+        if cx_unsharded is not None:
+            ok = ok and abs(r0["cx"] - cx_unsharded) \
+                <= 1e-6 * (1.0 + abs(cx_unsharded))
+        else:
+            ok = ok and rel <= 1e-6
+        if not ok:
+            fail(f"{label}: the mesh path's gate not met")
+    return total
+
+
+# pars.profile: the keys info["profile"] carries for each engine (the
+# reference's profiling.profile_iteration / profile_sparse_iteration)
+PROFILE_KEYS = {"dense": ("nt_scaling_ms", "schur_ms", "chol_ms",
+                          "schur_tflops", "chol_tflops", "schur_flop_count",
+                          "chol_flop_count"),
+                "sparse": ("nt_scaling_ms", "prepare_ms", "solve_ms")}
+
+
+def run_profile(label, At, b, c, K, pars, engine) -> dict:
+    """One solve with pars.profile=1 on the card: its info["profile"]
+    printed on a line of its own, every key of the engine's set present
+    with a positive, finite value."""
+    import sedumi_tpu_torch as st
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, _, info = st.sedumi(At, b, c, K, {"fid": 0, "profile": 1, **pars},
+                           device="cuda")
+    torch.cuda.synchronize()
+    prof = info.get("profile")
+    print(f"profile {label}: {json.dumps(prof)} (engine "
+          f"{info['lin_engine']}, phases "
+          f"{json.dumps({k: v['iters'] for k, v in info['phases'].items()})}"
+          f", wall {time.time() - t0:.2f}s)", flush=True)
+    if info["lin_engine"] != engine or prof is None \
+            or set(prof) != set(PROFILE_KEYS[engine]):
+        fail(f"profile {label}: engine {info['lin_engine']}, keys "
+             f"{sorted(prof or {})}, expected {engine}'s "
+             f"{sorted(PROFILE_KEYS[engine])}")
+    bad = [k for k, v in prof.items()
+           if not (np.isfinite(v) and v > 0)]
+    if bad:
+        fail(f"profile {label}: not positive and finite: {bad}")
+    return prof
+
+
+def check_debug_twins(name: str) -> None:
+    """pars.debug changes no value: with deterministic algorithms (as
+    check_dd64_twins runs them) `name` is solved without and with
+    pars.debug=1, and x, y and the phases must agree bit for bit."""
+    import sedumi_tpu_torch as st
+    from sedumi_tpu_torch.examples import load_example
+
+    ex = load_example(name)
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for debug in (0, 1):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                x, y, info = st.sedumi(ex.At, ex.b, ex.c, ex.K,
+                                       {"fid": 0, "debug": debug},
+                                       device="cuda")
+                torch.cuda.synchronize()
+                runs[debug] = dict(x=x, y=y, wall_s=time.time() - t0,
+                                   iters={k: v["iters"] for k, v
+                                          in info["phases"].items()},
+                                   numerr=info["numerr"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"{name} pars.debug twins (deterministic): " + json.dumps(
+        {f"debug={d}": {k: v for k, v in r.items() if k not in ("x", "y")}
+         for d, r in runs.items()}), flush=True)
+    a, b = runs[0], runs[1]
+    if not (np.array_equal(a["x"], b["x"]) and np.array_equal(a["y"], b["y"])
+            and a["iters"] == b["iters"]):
+        fail(f"{name}: pars.debug=1 changed the solve")
+
+
+def run_cli(runs: list, here: str) -> list:
+    """python -m sedumi_tpu_torch once for each argument list of `runs`,
+    in subprocesses on the card started together (the checkout's root as
+    their working directory): each must exit 0 with the JSON summary as
+    its last line.  Returns the summaries, in order."""
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-m", "sedumi_tpu_torch",
+                               *args], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=here)
+             for args in runs]
+    out = []
+    try:
+        for args, proc in zip(runs, procs):
+            out.append(_cli_summary(args, proc, t0))
+    finally:   # a failed run leaves no process behind
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _cli_summary(args: list, proc, t0: float) -> dict:
+    """The JSON summary of one CLI subprocess of run_cli: exit code 0 and
+    the reference CLI's keys, or the script fails."""
+    stdout, stderr = proc.communicate(timeout=600)
+    lines = stdout.strip().splitlines()
+    print(f"python -m sedumi_tpu_torch {' '.join(args)}: exit "
+          f"{proc.returncode} {time.time() - t0:.1f}s after the start, "
+          f"last line {lines[-1] if lines else None}", flush=True)
+    if proc.returncode != 0:
+        fail(f"the CLI on {args} exited {proc.returncode}:\n"
+             f"{stderr[-4000:]}")
+    try:
+        summary = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"the CLI on {args} printed no JSON summary last")
+    if set(summary) != {"cx", "by", "iter", "pinf", "dinf", "numerr", "err",
+                        "wallsec"}:
+        fail(f"the CLI's JSON keys {sorted(summary)} are not the "
+             f"reference CLI's")
+    return summary
+
+
+def check_cli(here: str) -> None:
+    """The CLI on the card: arch0.mat, and arch0 (K.l + K.s) written to
+    sparse SDPA by the port's write_sdpa and solved from the .dat-s.
+    Both must pass the reference gate (rel <= 1e-6 of the published
+    optimum on c'x and b'y, pinf = dinf = 0, numerr < 2) and land at the
+    same c'x to the gate's resolution (2e-6 relative): write_sdpa writes
+    F0 = -c, and read_sdpa reads c = -F0, so the two problems have one
+    objective."""
+    from sedumi_tpu_torch import kernels
+    from sedumi_tpu_torch.examples import load_example
+    from sedumi_tpu_torch.io_sdpa import write_sdpa
+
+    ex = load_example("arch0")
+    dat = kernels.BUILD_DIR / "arch0.dat-s"
+    write_sdpa(str(dat), ex.At, ex.b, ex.c, ex.K)
+    got = {}
+    paths = {"arch0.mat": os.path.join("examples", "arch0.mat"),
+             "arch0.dat-s": str(dat)}
+    summaries = run_cli([[path, "--json"] for path in paths.values()], here)
+    for label, r in zip(paths, summaries):
+        rel = max(abs(r["cx"] - ex.optval), abs(r["by"] - ex.optval)) \
+            / abs(ex.optval)
+        print(f"CLI {label}: cx={r['cx']!r} by={r['by']!r} rel={rel:.3e} "
+              f"iter={r['iter']} pinf={r['pinf']} dinf={r['dinf']} "
+              f"numerr={r['numerr']} wallsec={r['wallsec']:.2f}", flush=True)
+        if not (rel <= 1e-6 and r["pinf"] == 0 and r["dinf"] == 0
+                and r["numerr"] < 2):
+            fail(f"CLI {label}: reference gate not met")
+        got[label] = r["cx"]
+    a, b = got["arch0.mat"], got["arch0.dat-s"]
+    if abs(a - b) > 2e-6 * abs(a):
+        fail(f"the CLI landed arch0.mat at c'x={a!r} and its SDPA copy at "
+             f"{b!r}")
 
 
 def add_counts(total: dict) -> None:
@@ -2928,6 +3139,10 @@ def main() -> None:
     rows += check_df_gemv(dev, gen)
     rows += check_jacobi(dev, gen)
     rows += check_panel_kernels(dev, gen)
+    # K14-f32/K15-f32 on a generator of their own: the checks after them
+    # draw what they drew before these builds existed
+    rows += check_panel_kernels(dev, torch.Generator().manual_seed(20261018),
+                                torch.float32)
     torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()
@@ -3047,14 +3262,43 @@ def main() -> None:
     # nothing meanwhile
     kernels.reset_launch_counts()
     t_mesh = time.time()
-    for name, shape, nprocs, gate in MESH_SOLVES:
+    for name, shape, nprocs, gate, pars_list in MESH_SOLVES:
         counts = run_mesh(name, shape, nprocs,
-                          landed[name] if gate == "unsharded" else None)
+                          landed[name] if gate == "unsharded" else None,
+                          pars_list)
         for k, v in counts.items():
             total[k] += v
     print(f"mesh path: {time.time() - t_mesh:.1f}s", flush=True)
     if any(kernels.LAUNCHES.values()):
         fail("the parent process launched a kernel during the mesh path")
+
+    # pars.profile and pars.debug, their counts zeroed just before and read
+    # just after: profiles of arch0 (dense, f64), arch0 'mixed' (the f32
+    # bundle: its scaling runs K12-f32) and sdp1200 (sparse; without the
+    # host refinement, which the profile does not time), then nb solved
+    # with and without the sanitizer
+    kernels.reset_launch_counts()
+    t_pd = time.time()
+    arch0 = load_example("arch0")
+    sdp1200 = random_sparse_sdp(1200, 600, 4, np.random.default_rng(12345))
+    run_profile("arch0", arch0.At, arch0.b, arch0.c, arch0.K, {}, "dense")
+    run_profile("arch0 'mixed'", arch0.At, arch0.b, arch0.c, arch0.K,
+                {"dtype": "mixed"}, "dense")
+    run_profile("sdp1200", *sdp1200, {"optstep": 0, "refine": 0}, "sparse")
+    if kernels.LAUNCHES["jacobi_eigh_f32"] == 0:
+        fail("profile arch0 'mixed': the f32 scaling never ran K12-f32")
+    check_debug_twins("nb")
+    print(f"profile and debug: {time.time() - t_pd:.1f}s", flush=True)
+    if any(kernels.LAUNCHES[k] for k in OFF_PATH):
+        fail("an f64 or complex Jacobi build launched on the profile or "
+             "debug solves")
+    add_counts(total)
+    torch.cuda.empty_cache()
+
+    # the CLI, in subprocesses of its own (their launches are theirs)
+    t_cli = time.time()
+    check_cli(here)
+    print(f"CLI: {time.time() - t_cli:.1f}s", flush=True)
 
     # the sparse engine's kernels at the plans' shapes
     rng = np.random.default_rng(20261016)

@@ -41,6 +41,16 @@
 // division costs ~125 cycles and a square root ~90 (clock64 probes), and a
 // pivot of (a) ~1100 with its dot product and the hand-off: (a)'s four
 // 32-pivot chains and (b)'s 128-column chain set K14's time.
+//
+// Both kernels are templates over the element type: the f64 build is K14,
+// the f32 build K14-f32 (the f32 phase of the precision ladder under a
+// mesh).  Nothing in them is fixed for double: the shared memory is sized
+// by sizeof(Real) (half in f32; bs <= 128 fits either way), cp.async
+// copies one element at a time (4 bytes in f32, which it takes), the
+// pivot test compares with the type's own infinity, and division and
+// square root are IEEE-rounded in both types (nvcc's default -prec-div
+// and -prec-sqrt, no fast math), so the emulation run in float32 repeats
+// K14-f32 bit for bit.
 
 #include "tri_factor.cuh"
 
@@ -205,5 +215,11 @@ int chol_launch(const Real *C, Real *Lcol, int nb, int bs, int j,
 // Returns cudaGetLastError().
 extern "C" int panel_chol_launch(const double *C, double *Lcol, int nb,
                                  int bs, int j, cudaStream_t stream) {
+  return chol_launch(C, Lcol, nb, bs, j, stream);
+}
+
+// The f32 build (K14-f32, the f32 phase under a mesh), the same order.
+extern "C" int panel_chol_launch_f32(const float *C, float *Lcol, int nb,
+                                     int bs, int j, cudaStream_t stream) {
   return chol_launch(C, Lcol, nb, bs, j, stream);
 }

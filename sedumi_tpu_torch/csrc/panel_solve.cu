@@ -40,6 +40,11 @@
 // Every sum's order is fixed by the group sizes, not by the cluster's
 // size, so two calls agree bit for bit whatever the grid, and
 // tests/panel_emulation.py repeats the kernels bit for bit.  bs <= 128.
+// The kernels are templates over the element type: the f64 builds are
+// K15, the f32 builds K15-f32 (the f32 phase of the precision ladder under
+// a mesh), with the same groups, so the same order; each kernel sizes its
+// shared memory by sizeof(Real) and its divisions are IEEE-rounded in
+// either type.
 
 #include <cooperative_groups.h>
 
@@ -270,5 +275,27 @@ extern "C" int panel_bwd_contrib_launch(const double *L3, const double *x,
 extern "C" int panel_bwd_solve_launch(const double *Ljj, const double *bj,
                                       const double *contrib, double *xj,
                                       int bs, cudaStream_t stream) {
+  return bwd_solve_launch(Ljj, bj, contrib, xj, bs, stream);
+}
+
+// The f32 builds (K15-f32, the f32 phase under a mesh): the same steps and
+// the same order, with the arguments of the f64 entry points above.
+extern "C" int panel_fwd_step_launch_f32(const float *row, const float *x,
+                                         const float *bj, float *xj, int bs,
+                                         int mp, int j, int ncta,
+                                         cudaStream_t stream) {
+  return fwd_launch(row, x, bj, xj, bs, mp, j, ncta, stream);
+}
+
+extern "C" int panel_bwd_contrib_launch_f32(const float *L3, const float *x,
+                                            float *contrib, int bs, int mp,
+                                            int nb_loc, int g0, int j,
+                                            int ncta, cudaStream_t stream) {
+  return contrib_launch(L3, x, contrib, bs, mp, nb_loc, g0, j, ncta, stream);
+}
+
+extern "C" int panel_bwd_solve_launch_f32(const float *Ljj, const float *bj,
+                                          const float *contrib, float *xj,
+                                          int bs, cudaStream_t stream) {
   return bwd_solve_launch(Ljj, bj, contrib, xj, bs, stream);
 }

@@ -90,16 +90,21 @@ SOURCES = {
         "jacobi_herm_c128_launch": _JACOBI_ARGS,
         "jacobi_herm_c64_launch": _JACOBI_ARGS},
     "panel_chol.cu": {
-        "panel_chol_launch": [_P, _P, _I, _I, _I, _P]},
+        "panel_chol_launch": [_P, _P, _I, _I, _I, _P],
+        "panel_chol_launch_f32": [_P, _P, _I, _I, _I, _P]},
     "panel_solve.cu": {
         "panel_fwd_step_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "panel_bwd_contrib_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _P],
-        "panel_bwd_solve_launch": [_P, _P, _P, _P, _I, _P]},
+        "panel_bwd_solve_launch": [_P, _P, _P, _P, _I, _P],
+        "panel_fwd_step_launch_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "panel_bwd_contrib_launch_f32": [_P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _P],
+        "panel_bwd_solve_launch_f32": [_P, _P, _P, _P, _I, _P]},
 }
 
-# K1-K3, K8-K10, K12 and K13 count their builds apart (the *_f32 and
-# *_c64 names)
+# K1-K3, K8-K10, K12-K15 count their builds apart (the *_f32 and *_c64
+# names)
 LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "ozaki_split": 0, "dd_accumulate": 0, "dd_gemv": 0,
             "dd_chol_solve": 0,
@@ -110,7 +115,10 @@ LAUNCHES = {"dd_matvec_residual": 0, "psd_contrib_coo": 0, "ldl_masked": 0,
             "df_vecmat": 0, "jacobi_eigh": 0, "jacobi_eigh_f32": 0,
             "jacobi_eigh_herm": 0, "jacobi_eigh_herm_c64": 0,
             "dist_panel_chol": 0, "dist_trisolve_fwd": 0,
-            "dist_trisolve_bwd_contrib": 0, "dist_trisolve_bwd_solve": 0}
+            "dist_trisolve_bwd_contrib": 0, "dist_trisolve_bwd_solve": 0,
+            "dist_panel_chol_f32": 0, "dist_trisolve_fwd_f32": 0,
+            "dist_trisolve_bwd_contrib_f32": 0,
+            "dist_trisolve_bwd_solve_f32": 0}
 
 # launches per variant and order of K12 and K13 (lax_eigh.variant_key),
 # per shape of K2 and K4 ("name@shape", count) and per variant and order

@@ -21,8 +21,9 @@ import torch
 from .. import ipm, kernels
 from ..convert import dense_aop_from_numpy, scaling_from_numpy
 from ..generators import feasible_problem
-from ..opA import build_dense_aop
+from ..opA import DenseAOp, build_dense_aop
 from ..params import Pars
+from ..structs import cv_cast
 from ..transform import pretransfo
 from . import mesh as mesh_mod
 from .mesh import make_mesh, replicate, shard_aop, shard_state
@@ -133,7 +134,11 @@ def rank_panel_jobs(rank: int, jobs: list, device="cuda") -> list:
     """The panel routines on numpy inputs, over a one-axis world mesh
     "blocks": ("chol", M, bs) -> L; ("solve", M, b, bs) -> x from the
     factor and both substitutions; ("engine", aop arrays, scaling arrays,
-    reg, rhs, bs) -> (ahc, chc, ok, x) of PanelSchurEngine."""
+    reg, rhs, bs[, dtype, factor dtype]) -> (ahc, chc, ok, x) of
+    PanelSchurEngine, its operator, scaling and rhs in `dtype` (a torch
+    dtype's name, float64 by default) and its factor in `factor dtype`
+    (None: the formation's; the hybrid phase's f64 factor of an f32
+    formation)."""
     mesh = make_mesh(device=device)
 
     def t(a):
@@ -152,12 +157,17 @@ def rank_panel_jobs(rank: int, jobs: list, device="cuda") -> list:
             y = _dist_trisolve(L, t(b), mesh, "blocks", bs, lower=True)
             out.append(_dist_trisolve(L, y, mesh, "blocks", bs, lower=False))
         elif kind == "engine":
-            _, aop_np, S_np, reg, rhs, bs = job
-            aop = dense_aop_from_numpy(*aop_np, device=device)
-            S = scaling_from_numpy(S_np, device=device)
-            eng = PanelSchurEngine(mesh, bs=bs)
+            _, aop_np, S_np, reg, rhs, bs, *prec = job
+            dt, fdt = (getattr(torch, prec[0]),
+                       prec[1] and getattr(torch, prec[1])) if prec \
+                else (torch.float64, None)
+            a = dense_aop_from_numpy(*aop_np, device=device)
+            aop = DenseAOp(a.Al.to(dt), [v.to(dt) for v in a.Aq],
+                           [v.to(dt) for v in a.As], a.q_shapes, a.s_shapes)
+            S = cv_cast(scaling_from_numpy(S_np, device=device), dt)
+            eng = PanelSchurEngine(mesh, bs=bs, factor_dtype=fdt)
             ctx, ahc, chc, ok = eng.prepare(aop, S, reg)
-            out.append((ahc, chc, ok, eng.solve(ctx, t(rhs))))
+            out.append((ahc, chc, ok, eng.solve(ctx, t(rhs).to(dt))))
         else:
             raise ValueError(f"unknown panel job {kind!r}")
     return out

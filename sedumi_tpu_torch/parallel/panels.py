@@ -17,7 +17,9 @@ psum).  The per-step bodies are kernels on the card:
   (:156-162) and the backward triangle solve after the psum (:170-171).
 
 On CPU tensors the same functions run their plain PyTorch versions
-(*_plain); on a CUDA tensor they launch the kernel or raise.  The trailing
+(*_plain), in the tensors' dtype; on a CUDA tensor they launch the
+kernel's build for the dtype (f64: K14/K15; f32: K14-f32/K15-f32, the f32
+phase of the precision ladder under a mesh) or raise.  The trailing
 update (a [nb_loc bs, bs] x [bs, mp] product), the strict-upper zeroing
 and ADA v are plain torch.
 
@@ -39,6 +41,21 @@ from .mesh import Mesh
 
 def _pad_up(m: int, mult: int) -> int:
     return -(-m // mult) * mult
+
+
+# the kernels' builds: entry point and launch counter suffix per dtype
+_BUILDS = {torch.float64: "", torch.float32: "_f32"}
+
+
+def _build(*tensors: torch.Tensor) -> str:
+    """The suffix of the build for the tensors' dtype (f64 or f32, all
+    alike) after kernels.check_cuda; anything else raises."""
+    dt = tensors[0].dtype
+    if dt not in _BUILDS:
+        raise ValueError(f"the panel kernels take float64 or float32, got "
+                         f"{dt}")
+    kernels.check_cuda(*tensors, dtype=dt)
+    return _BUILDS[dt]
 
 
 # --------------------------------------------------------------------------
@@ -64,14 +81,14 @@ def panel_chol_plain(C: torch.Tensor, j: int) -> torch.Tensor:
 
 
 def _panel_chol_kernel(C: torch.Tensor, j: int) -> torch.Tensor:
-    kernels.check_cuda(C, dtype=torch.float64)
+    sfx = _build(C)
     nb, bs, _ = C.shape
     if bs > 128:
         raise ValueError(f"panel_chol takes bs <= 128, got {bs}")
     Lcol = torch.empty_like(C)
-    kernels.launch("panel_chol.cu", "panel_chol_launch", C.data_ptr(),
+    kernels.launch("panel_chol.cu", "panel_chol_launch" + sfx, C.data_ptr(),
                    Lcol.data_ptr(), nb, bs, j)
-    kernels.LAUNCHES["dist_panel_chol"] += 1
+    kernels.LAUNCHES["dist_panel_chol" + sfx] += 1
     return Lcol
 
 
@@ -125,14 +142,14 @@ def _check_bs(bs: int) -> None:
 def _fwd_step_kernel(row, x, bj, j: int, ncta: int = 0) -> torch.Tensor:
     """K15's forward step on a cluster of ncta CTAs (0: one a column group
     of the row product, at most 8); the result does not depend on it."""
-    kernels.check_cuda(row, x, bj, dtype=torch.float64)
+    sfx = _build(row, x, bj)
     bs, mp = row.shape
     _check_bs(bs)
     xj = torch.empty(bs, dtype=row.dtype, device=row.device)
-    kernels.launch("panel_solve.cu", "panel_fwd_step_launch", row.data_ptr(),
-                   x.data_ptr(), bj.data_ptr(), xj.data_ptr(), bs, mp, j,
-                   ncta)
-    kernels.LAUNCHES["dist_trisolve_fwd"] += 1
+    kernels.launch("panel_solve.cu", "panel_fwd_step_launch" + sfx,
+                   row.data_ptr(), x.data_ptr(), bj.data_ptr(), xj.data_ptr(),
+                   bs, mp, j, ncta)
+    kernels.LAUNCHES["dist_trisolve_fwd" + sfx] += 1
     return xj
 
 
@@ -147,13 +164,13 @@ def _bwd_contrib_kernel(L3, x, bs: int, g0: int, j: int,
                         ncta: int = 0) -> torch.Tensor:
     """K15's backward contribution on clusters of ncta CTAs (0: one a row
     group, at most 8); the result does not depend on it."""
-    kernels.check_cuda(L3, x, dtype=torch.float64)
+    sfx = _build(L3, x)
     _check_bs(bs)
     contrib = torch.empty(bs, dtype=L3.dtype, device=L3.device)
-    kernels.launch("panel_solve.cu", "panel_bwd_contrib_launch",
+    kernels.launch("panel_solve.cu", "panel_bwd_contrib_launch" + sfx,
                    L3.data_ptr(), x.data_ptr(), contrib.data_ptr(), bs,
                    L3.shape[1], L3.shape[0] // bs, g0, j, ncta)
-    kernels.LAUNCHES["dist_trisolve_bwd_contrib"] += 1
+    kernels.LAUNCHES["dist_trisolve_bwd_contrib" + sfx] += 1
     return contrib
 
 
@@ -168,14 +185,14 @@ def trisolve_bwd_solve(Ljj, bj, contrib) -> torch.Tensor:
     """The backward triangle solve (K15 bwd_solve on the card)."""
     if not Ljj.is_cuda:
         return trisolve_bwd_solve_plain(Ljj, bj, contrib)
-    kernels.check_cuda(Ljj, bj, contrib, dtype=torch.float64)
+    sfx = _build(Ljj, bj, contrib)
     bs = Ljj.shape[0]
     _check_bs(bs)
     xj = torch.empty(bs, dtype=Ljj.dtype, device=Ljj.device)
-    kernels.launch("panel_solve.cu", "panel_bwd_solve_launch",
+    kernels.launch("panel_solve.cu", "panel_bwd_solve_launch" + sfx,
                    Ljj.data_ptr(), bj.data_ptr(), contrib.data_ptr(),
                    xj.data_ptr(), bs)
-    kernels.LAUNCHES["dist_trisolve_bwd_solve"] += 1
+    kernels.LAUNCHES["dist_trisolve_bwd_solve" + sfx] += 1
     return xj
 
 

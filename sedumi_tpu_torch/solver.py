@@ -39,13 +39,19 @@ A device mesh (pars.mesh_shape; mesh_plan) runs SPMD, one process per mesh
 position in an initialized torch.distributed group, every rank solving the
 same data: on the dense route the data axes split the Schur formation
 (parallel.mesh.shard_coo_aop) and a "panels" axis factors and solves it in
-panels (parallel.panels.PanelSchurEngine), in f64 only, with dd64 off as
-in the reference; the sparse route ignores the mesh.  After each step
+panels (parallel.panels.PanelSchurEngine), with dd64 off as in the
+reference; the sparse route ignores the mesh.  Under 'mixed' the mesh's
+ladder is the reference's, [f32, hybrid, host64]: the f32 phase on the
+panel engine in f32 (K14-f32/K15-f32 on the card), the hybrid phase with
+an f64 factor of its f32-formed matrix, host64 an f64 phase on the panel
+engine as the f64 mode runs it ('float32': [f32]).  After each step
 (and each escalation) every rank takes global rank 0's iterate and
 statistics, so the host loops branch alike and return the same result.
-Routes this port does not cover raise NotImplementedError naming the
-ROADMAP item instead of falling back: the precision ladder under a mesh
-and the profiling/debug options.
+
+pars.profile times the hot phases once after the loop (profiling.py) into
+info["profile"]; pars.debug checks every output leaf of each step on the
+host and raises FloatingPointError naming the first non-finite one
+(debug_step).
 """
 
 from __future__ import annotations
@@ -92,6 +98,7 @@ class InternalResult:
     engine: str = "dense"
     vplot: dict | None = None
     optstep: int = 0       # 1: in-loop LP finite termination fired
+    profile: dict | None = None   # pars.profile's phase timings
 
 
 def _log(pars: Pars, msg: str) -> None:
@@ -166,14 +173,38 @@ def _projected_start(At, b, layout, state):
 
 
 def _check_routes(pars: Pars) -> None:
-    """Raise for the reference routes this port does not cover."""
-    if pars.profile or pars.debug:
-        raise NotImplementedError(
-            "pars.profile / pars.debug are not ported yet (ROADMAP queue A "
-            "item 11)")
+    """Raise for a precision setting neither package knows."""
     fp.precision_mode(pars.dtype)
     if pars.schur_dtype:
         fp.torch_dtype(pars.schur_dtype)
+
+
+def debug_step(step):
+    """pars.debug's numerical sanitizer (reference solver.py:184-215): the
+    step, then its output checked on the host, leaf by leaf in the
+    reference's order (x.l, y, tau, kappa, every stats field, then each
+    x.q, x.s, z.q and z.s block); the first leaf that holds a non-finite
+    value raises FloatingPointError naming it, instead of surfacing as an
+    anonymous rejected step.  The step's values are not touched."""
+    def checked(*args, **kw):
+        out = step(*args, **kw)
+        new_state, st = out
+        leaves = [("x.l", new_state.x.l), ("y", new_state.y),
+                  ("tau", new_state.tau), ("kappa", new_state.kappa)]
+        leaves += [("stats." + k, getattr(st, k)) for k in st._fields]
+        for fam, blocks in (("x.q", new_state.x.q), ("x.s", new_state.x.s),
+                            ("z.q", new_state.z.q), ("z.s", new_state.z.s)):
+            leaves += [(f"{fam}[{i}]", blk) for i, blk in enumerate(blocks)]
+        # one flag a leaf, brought to the host in one transfer
+        finite = torch.stack([torch.isfinite(v).all() for _, v in leaves]) \
+            .cpu().tolist()
+        for (name, _), ok in zip(leaves, finite):
+            if not ok:
+                raise FloatingPointError(
+                    f"pars.debug sanitizer: non-finite values in "
+                    f"'{name}' after the IPM step")
+        return out
+    return checked
 
 
 def _clique_bound_dense(At, layout: Layout) -> bool:
@@ -267,7 +298,7 @@ def _phase_eigh(phase: str, device):
         else contextlib.nullcontext()
 
 
-def mesh_plan(pars: Pars, engine_kind: str, mode: str):
+def mesh_plan(pars: Pars, engine_kind: str):
     """The mesh a solve builds (the reference's rule, solver.py:314-352,
     for SPMD ranks): None without pars.mesh_shape, for a one-position
     mesh, or when the process group holds fewer ranks than the mesh (the
@@ -277,8 +308,8 @@ def mesh_plan(pars: Pars, engine_kind: str, mode: str):
     make_mesh(n) names it.  On the dense route every axis but "panels" is
     a data axis, unless the one-axis mesh was asked for as "panels", and a
     "panels" axis in pars.mesh_shape takes PanelSchurEngine on "panels"
-    (or "blocks"); the sparse route ignores the mesh ((), None), and the
-    precision ladder under a mesh on the dense route is not ported."""
+    (or "blocks"); the sparse route ignores the mesh ((), None).  Every
+    precision mode runs on the plan (its phases: phase_ladder)."""
     shape = {str(k): int(v) for k, v in (pars.mesh_shape or {}).items()}
     n_req = math.prod(shape.values())
     if n_req <= 1:
@@ -294,11 +325,6 @@ def mesh_plan(pars: Pars, engine_kind: str, mode: str):
     built = shape if len(shape) > 1 else {"blocks": n_req}
     if engine_kind != "dense":
         return built, (), None
-    if mode != "f64":
-        raise NotImplementedError(
-            f"pars.dtype={pars.dtype!r} under a device mesh: the precision "
-            f"ladder with the panel engine (f32 builds of K14/K15) is not "
-            f"ported yet (ROADMAP queue A item 10b)")
     if len(shape) > 1:
         data_axes = tuple(k for k in shape if k != "panels")
     else:
@@ -361,7 +387,7 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
                    f"{sp_meta['Kd']} dense column(s)")
     F32, F64 = torch.float32, torch.float64
     dt_hi = F32 if mode == "f32" else F64     # the state's dtype
-    plan = mesh_plan(pars, engine_kind, mode)
+    plan = mesh_plan(pars, engine_kind)
     mesh = Mesh(plan[0], device) if plan else None
     data_axes, panel_axis = plan[1:] if plan else ((), None)
     ops = {}
@@ -395,11 +421,11 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
             engine = PanelSchurEngine(
                 mesh, axis=panel_axis,
                 refine_iters=max(2, int(pars.cg.refine)))
+        step = ipm.make_step(layout, pars, normb, normc, cscale, dtype=sdt,
+                             engine=engine, compute_dtype=compute_dtype,
+                             err_dens=(den_p, den_d))
         return dict(
-            step=ipm.make_step(layout, pars, normb, normc, cscale,
-                               dtype=sdt, engine=engine,
-                               compute_dtype=compute_dtype,
-                               err_dens=(den_p, den_d)),
+            step=debug_step(step) if pars.debug else step,
             aop=aop, aop_lo=aop_lo,
             b=torch.as_tensor(b, dtype=sdt, device=device),
             rs=torch.as_tensor(rowscale, dtype=sdt, device=device),
@@ -873,6 +899,24 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
         iterlog.append(dict(best_rec))
     st_last = iterlog[-1] if iterlog else dict(
         err_p=np.inf, err_d=np.inf, gap_rel=np.inf, cx=0.0, by=0.0)
+    profile = None
+    if pars.profile:
+        # the hot phases timed on the final iterate (reference solver.py:
+        # 1250-1266): the f32 phase's bundle when there is one, else the
+        # first phase's, under that phase's eigensolver.  Under a mesh the
+        # bundle's operator forms its share and all-reduces, as in the
+        # step, and the Cholesky is the replicated dense one, as the
+        # reference's profile_iteration runs it.
+        from . import profiling
+
+        prof = "f32" if "f32" in bundles else phase_order[0]
+        bd = bundles[prof]
+        st_prof = ipm.cast_state(state, bd["sdt"])
+        with _phase_eigh(prof, device):
+            profile = profiling.profile_sparse_iteration(
+                TileSchurEngine(pars), bd["aop"], st_prof, reg) \
+                if engine_kind == "sparse" else \
+                profiling.profile_iteration(bd["aop"], st_prof, reg)
     return InternalResult(
         x=to_flat(layout, state.x),
         y=state.y.cpu().numpy() * rowscale * cscale,
@@ -890,6 +934,7 @@ def _solve_internal(At, b, c, layout: Layout, pars: Pars,
         engine=engine_kind,
         vplot={"v": vlist, "rate": ratelist} if pars.vplot else None,
         optstep=optstep_hit,
+        profile=profile,
     )
 
 
@@ -1091,6 +1136,8 @@ def sedumi(
         wallsec=t_post - t0,
         cpusec=time.process_time() - cpu0,
     )
+    if res.profile is not None:
+        info["profile"] = res.profile
     info["lin_engine"] = res.engine
     phases: dict[str, dict] = {}
     for rec in res.iterlog:

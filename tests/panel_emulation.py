@@ -19,7 +19,13 @@ step (one rounding per product and per sum, as the kernels do under nvcc
 The group sizes fix every sum's order whatever the kernels' grid, so on
 the CPU these show what the kernels compute against the plain versions and
 the reference, and on the card the kernels are held to them bit for bit.
-jax-free: the card tests import it too.
+
+Two modes, by the inputs' dtype (all alike): float64 emulates K14/K15,
+float32 their f32 builds K14-f32/K15-f32 (the f32 phase of the precision
+ladder under a mesh).  Every product, sum, division and square root is
+then one IEEE f32 operation, as in the kernels (nvcc --fmad=false, IEEE
+division and square root); tile_emulation's square root is numpy's,
+correctly rounded in either type.  jax-free: the card tests import it too.
 """
 
 from __future__ import annotations
@@ -30,6 +36,16 @@ import tile_emulation as emu
 
 FWD_GROUP = 128   # columns of the forward step's row product per partial
 BWD_GROUP = 64    # rows of the backward contribution per partial
+MODES = (torch.float64, torch.float32)   # K14/K15, K14-f32/K15-f32
+
+
+def _mode(*tensors: torch.Tensor) -> None:
+    """The emulation's mode is its inputs' dtype: f64 or f32, all alike
+    (no operation widens or narrows)."""
+    dts = {t.dtype for t in tensors}
+    if len(dts) != 1 or not dts <= set(MODES):
+        raise ValueError(f"the panel emulation takes float64 or float32 "
+                         f"inputs of one dtype, got {sorted(map(str, dts))}")
 
 
 def _in_order(parts: list, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -44,6 +60,7 @@ def _in_order(parts: list, n: int, like: torch.Tensor) -> torch.Tensor:
 
 def chol_column(C: torch.Tensor, j: int) -> torch.Tensor:
     """K14: Lcol [nb, bs, bs] of the gathered block column C."""
+    _mode(C)
     nb, bs, _ = C.shape
     out = torch.zeros_like(C)
     A, ok = emu.chol_blocked(torch.tril(C[j]))
@@ -60,6 +77,7 @@ def chol_column(C: torch.Tensor, j: int) -> torch.Tensor:
 def fwd_step(row: torch.Tensor, x: torch.Tensor, bj: torch.Tensor,
              j: int) -> torch.Tensor:
     """K15's forward step: xj = Ljj^-1 (bj - row[:, :j bs] x)."""
+    _mode(row, x, bj)
     bs = row.shape[0]
     k0 = j * bs
     parts = [emu.row_dots(row[:, g:min(g + FWD_GROUP, k0)],
@@ -72,6 +90,7 @@ def bwd_contrib(L3: torch.Tensor, x: torch.Tensor, bs: int, g0: int,
                 j: int) -> torch.Tensor:
     """K15's backward contribution: sum over the local block rows g > j of
     L[g, j]' x_g."""
+    _mode(L3, x)
     nb_loc = L3.shape[0] // bs
     r0 = max(j - g0 + 1, 0)
     T = L3[r0 * bs:, j * bs:(j + 1) * bs]
@@ -84,6 +103,7 @@ def bwd_contrib(L3: torch.Tensor, x: torch.Tensor, bs: int, g0: int,
 def bwd_solve(Ljj: torch.Tensor, bj: torch.Tensor,
               contrib: torch.Tensor) -> torch.Tensor:
     """K15's back solve: xj = Ljj^-T (bj - contrib)."""
+    _mode(Ljj, bj, contrib)
     return emu.bwd_diag(Ljj, bj - contrib)
 
 

@@ -1643,14 +1643,51 @@ def test_panel_kernels_match_emulation(cuda, bs):
     widths _bs_for yields and at 48 (a short last panel); two calls agree
     bit for bit, and K15's sums do not depend on the cluster's size (1,
     3 and 8 CTAs against the default)."""
+    _panel_emulation_case(cuda, bs, torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 48, 64, 128])
+def test_panel_kernels_f32_match_emulation(cuda, bs):
+    """K14-f32 and K15-f32 as test_panel_kernels_match_emulation holds
+    K14/K15: bit for bit the emulation run in float32, on chip_smoke's
+    f32 matrix (cond 1e3)."""
+    _panel_emulation_case(cuda, bs, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,mp", [(4, 32), (32, 128), (64, 256),
+                                   (128, 1024)])
+def test_panel_kernels_f32(cuda, bs, mp):
+    """K14-f32 and K15-f32 against their plain versions in f32, within
+    chip_smoke.PANEL_CASE's f32 tolerances; they count as the f32 builds."""
+    from chip_smoke import PANEL_CASE, panel_case
+
+    f32 = torch.float32
+    c = panel_case(bs, mp, torch.Generator().manual_seed(bs + mp), cuda, f32)
+    nb = mp // bs
+    assert c["counts"] == {"dist_panel_chol_f32": nb + 1,
+                           "dist_trisolve_fwd_f32": nb,
+                           "dist_trisolve_bwd_contrib_f32": 2 * nb,
+                           "dist_trisolve_bwd_solve_f32": nb}
+    tol = PANEL_CASE[f32]
+    assert c["rel_l"] <= tol["tol"] and c["rel_x"] <= tol["tol"]
+    assert c["fac"] <= tol["fac"] and c["resid"] <= tol["resid"]
+    assert c["nan_ok"] and c["emu_ok"] and c["x"].dtype == f32
+
+
+def _panel_emulation_case(cuda, bs, dtype):
+    """The body of the emulation tests, in `dtype` (f64: K14/K15, on a
+    matrix of cond 1e6; f32: their f32 builds, cond 1e3)."""
     import panel_emulation as pe
-    from chip_smoke import panel_chain, panel_columns, panel_spd
+    from chip_smoke import PANEL_CASE, panel_chain, panel_columns, panel_spd
     from sedumi_tpu_torch.parallel import panels as pn
 
     nb = 8
     mp = nb * bs
     gen = torch.Generator().manual_seed(bs)
-    Cs, L = panel_columns(panel_spd(mp, gen, cuda), bs)
+    Cs, L = panel_columns(panel_spd(mp, gen, cuda, dtype,
+                                    PANEL_CASE[dtype]["cond"]), bs)
     for j, C in enumerate(Cs):
         got = pn.panel_chol_step(C, j)
         assert bits_equal(got.cpu(), pe.chol_column(C.cpu(), j)), j
@@ -1660,7 +1697,8 @@ def test_panel_kernels_match_emulation(cuda, bs):
     got = pn.panel_chol_step(bad, 4)
     assert bits_equal(got.cpu(), pe.chol_column(bad.cpu(), 4))
     assert torch.isnan(got[4:]).all() and (got[:4] == 0).all()
-    b = torch.randn(mp, generator=gen, dtype=torch.float64).to(cuda)
+    b = torch.randn(mp, generator=gen, dtype=torch.float64).to(dtype) \
+        .to(cuda)
     x = panel_chain(L, b, bs, 2, pn.trisolve_fwd_step,
                     pn.trisolve_bwd_contrib, pn.trisolve_bwd_solve)
     assert bits_equal(x.cpu(), pe.dist_solve(L.cpu(), b.cpu(), bs, 2))
@@ -1789,3 +1827,63 @@ def test_mesh_oh_witness(cuda):
         assert r0["info"]["numerr"] < 2
         assert abs(r0["cx"] - cx0) <= 1e-6 * (1.0 + abs(cx0))
         np.testing.assert_array_equal(res[1]["x"], r0["x"])
+
+
+@pytest.mark.cuda
+def test_mesh_mixed_ladder(cuda):
+    """nb under 'mixed' with {"hosts": 2, "panels": 2} on four ranks
+    sharing this card: the mesh's ladder (f32 first, no dd64) at the
+    reference gate, the same x on every rank, K14-f32/K15-f32 and
+    K14/K15 launched on each, no dd64 kernel or K3.  Prints one JSON
+    line."""
+    from sedumi_tpu_torch.parallel import entry
+    from sedumi_tpu_torch.parallel.launch import run_spmd
+
+    ex = load_example("nb")
+    res = run_spmd(entry.rank_sedumi, 4,
+                   args=(("example", "nb"),
+                         {"fid": 0, "dtype": "mixed",
+                          "mesh_shape": {"hosts": 2, "panels": 2}}, "cuda"),
+                   device="cuda", timeout_s=600)
+    print(json.dumps({"mesh_nb_mixed": [{k: v for k, v in r.items()
+                                         if k not in ("x", "y")}
+                                        for r in res]}), flush=True)
+    r0 = res[0]
+    rel = abs(r0["cx"] - ex.optval) / abs(ex.optval)
+    assert r0["info"]["pinf"] == 0 and r0["info"]["dinf"] == 0
+    assert r0["info"]["numerr"] < 2 and rel <= 1e-6
+    assert next(iter(r0["phases"])) == "f32" and "dd64" not in r0["phases"]
+    for r in res:
+        np.testing.assert_array_equal(r["x"], r0["x"])
+        for k in ("dist_panel_chol", "dist_trisolve_fwd",
+                  "dist_trisolve_bwd_contrib", "dist_trisolve_bwd_solve"):
+            assert r["launches"].get(k, 0) > 0, k
+            assert r["launches"].get(k + "_f32", 0) > 0, k + "_f32"
+        for k in ("ldl_masked", "dd_panel_chol", "dd_gemv"):
+            assert r["launches"].get(k, 0) == 0, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pars,engine", [({}, "dense"),
+                                         ({"dtype": "mixed"}, "dense"),
+                                         ({"sparse": 1}, "sparse")])
+def test_profile_on_the_card(cuda, pars, engine):
+    """pars.profile=1 on the card (arch0; the sparse engine forced on it
+    too): info["profile"] has its engine's keys, every value positive and
+    finite (the times are fenced by torch.cuda.synchronize); under
+    'mixed' the f32 bundle's scaling launches K12-f32."""
+    ex = load_example("arch0")
+    kernels.reset_launch_counts()
+    _, _, info = st.sedumi(ex.At, ex.b, ex.c, ex.K,
+                           {"fid": 0, "profile": 1, "refine": 0, **pars},
+                           device=cuda)
+    prof = info["profile"]
+    print(json.dumps({"profile": prof, "pars": pars}), flush=True)
+    assert info["lin_engine"] == engine
+    keys = {"dense": {"nt_scaling_ms", "schur_ms", "chol_ms", "schur_tflops",
+                      "chol_tflops", "schur_flop_count", "chol_flop_count"},
+            "sparse": {"nt_scaling_ms", "prepare_ms", "solve_ms"}}[engine]
+    assert set(prof) == keys
+    assert all(np.isfinite(v) and v > 0 for v in prof.values()), prof
+    if pars.get("dtype") == "mixed":
+        assert kernels.LAUNCHES["jacobi_eigh_f32"] > 0

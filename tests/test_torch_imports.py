@@ -23,7 +23,10 @@ def _forbidden(name: str) -> bool:
 
 
 def test_import_leaves_jax_and_reference_out():
-    code = ("import sys, sedumi_tpu_torch, sedumi_tpu_torch.convert; "
+    code = ("import sys, sedumi_tpu_torch, sedumi_tpu_torch.convert, "
+            "sedumi_tpu_torch.__main__, sedumi_tpu_torch.profiling, "
+            "sedumi_tpu_torch.io_sdpa, sedumi_tpu_torch.io_mps, "
+            "sedumi_tpu_torch.io_pack; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'sedumi_tpu')); "
             "print(repr(bad))")

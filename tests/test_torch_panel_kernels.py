@@ -7,6 +7,9 @@ port's plain versions (parallel.panels.panel_chol_plain, trisolve_*_plain)
 and, once, against the reference's dist_cholesky and _dist_trisolve.
 Inputs are chip_smoke.py's (a Jacobi-scaled SPD matrix of cond ~1e6 and
 every block column as dist_cholesky hands it to K14), at small sizes.
+The emulation's f32 mode (K14-f32/K15-f32, the f32 phase under a mesh) is
+held to the plain versions run in f32, on chip_smoke.py's f32 case (cond
+1e3), within chip_smoke.PANEL_TOL_F32; nothing widens on the way.
 """
 
 import jax.numpy as jnp
@@ -15,7 +18,8 @@ import pytest
 import torch
 
 import panel_emulation as pe
-from chip_smoke import PANEL_TOL, panel_chain, panel_columns, panel_spd
+from chip_smoke import PANEL_CASE, PANEL_TOL, PANEL_TOL_F32, panel_chain, \
+    panel_columns, panel_spd
 from sedumi_tpu.parallel import make_mesh as jmake_mesh
 from sedumi_tpu.parallel import panels as jpanels
 from sedumi_tpu_torch.parallel import panels as tpanels
@@ -126,3 +130,65 @@ def test_non_pd_block_gives_nan_from_it_on(bs, where):
     assert torch.all(torch.isnan(got[j:])) and torch.all(torch.isnan(
         want[j:]))
     assert torch.all(got[:j] == 0) and torch.all(want[:j] == 0)
+
+
+def _case32(bs, mp):
+    """_case in f32: chip_smoke's f32 matrix (cond 1e3), its block
+    columns and factor in f32, and an f32 right-hand side."""
+    gen = torch.Generator().manual_seed(bs + mp)
+    f32 = torch.float32
+    M = panel_spd(mp, gen, "cpu", f32, PANEL_CASE[f32]["cond"])
+    Cs, L = panel_columns(M, bs)
+    b = torch.randn(mp, generator=gen, dtype=torch.float64).to(f32)
+    return M, Cs, L, b
+
+
+@pytest.mark.parametrize("bs,mp", CASES)
+def test_f32_chol_column_order_matches_plain(bs, mp):
+    """K14-f32's order (the emulation in float32) on every block column
+    against the plain version in f32: within PANEL_TOL_F32 of max|L|,
+    both in float32, the blocks above exactly 0."""
+    _, Cs, L, _ = _case32(bs, mp)
+    lmax = float(L.abs().max())
+    for j, C in enumerate(Cs):
+        got = pe.chol_column(C, j)
+        want = tpanels.panel_chol_plain(C, j)
+        assert got.dtype == want.dtype == torch.float32
+        assert float((got - want).abs().max()) <= PANEL_TOL_F32 * lmax, j
+        assert torch.all(got[:j] == 0) and torch.all(torch.triu(got[j], 1)
+                                                      == 0)
+
+
+@pytest.mark.parametrize("bs,mp", CASES)
+def test_f32_substitution_order_matches_plain(bs, mp):
+    """K15-f32's order in both substitutions over two panels against the
+    plain steps in f32: within PANEL_TOL_F32 of max|x|, every step in
+    float32, and L L' x = b to chip_smoke's f32 residual bound."""
+    M, _, L, b = _case32(bs, mp)
+    x_e = pe.dist_solve(L, b, bs, 2)
+    x_p = panel_chain(L, b, bs, 2, tpanels.trisolve_fwd_plain,
+                      tpanels.trisolve_bwd_contrib_plain,
+                      tpanels.trisolve_bwd_solve_plain)
+    assert x_e.dtype == x_p.dtype == torch.float32
+    xmax = float(x_p.abs().max())
+    assert float((x_e - x_p).abs().max()) <= PANEL_TOL_F32 * xmax
+    resid = float((M @ x_e - b).abs().max() / b.abs().max())
+    assert resid <= PANEL_CASE[torch.float32]["resid"]
+
+
+def test_f32_non_pd_block_gives_nan_and_mixed_dtypes_raise():
+    """A failed pivot in f32: NaN from block j on and 0 above, in the
+    emulation as in the plain version; the emulation takes no mixture of
+    f32 and f64 inputs (the kernels' builds take one dtype)."""
+    bs, nb, j = 32, 4, 2
+    _, Cs, L, b = _case32(bs, nb * bs)
+    C = Cs[j].clone()
+    C[j, 5, 5] = -1.0
+    got, want = pe.chol_column(C, j), tpanels.panel_chol_plain(C, j)
+    assert torch.all(torch.isnan(got[j:])) and torch.all(torch.isnan(
+        want[j:]))
+    assert torch.all(got[:j] == 0) and torch.all(want[:j] == 0)
+    with pytest.raises(ValueError, match="one dtype"):
+        pe.fwd_step(L[:bs], torch.zeros(nb * bs, dtype=torch.float64),
+                    b[:bs], 0)
+

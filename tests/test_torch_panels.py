@@ -5,7 +5,10 @@ The port runs on 4 gloo ranks (parallel.launch.run_spmd, one spawn for the
 whole module); the reference on make_mesh(4) of the suite's 8 virtual
 devices, so both split the same way.  Inputs come from numpy with a seed
 and go to both packages.  Mirrors tests/test_panels.py, plus the plain
-versions of kernels K14/K15 against numpy and the non-PD case.
+versions of kernels K14/K15 against numpy and the non-PD case, and the
+panel engine in the precision ladder's phases under a mesh (formed,
+factored and solved in f32; formed in f32 with an f64 factor) against the
+port's dense engine in the same dtypes.
 """
 
 import sys
@@ -26,12 +29,15 @@ from sedumi_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
 from sedumi_tpu.parallel import panels as jpanels  # noqa: E402
 from sedumi_tpu_torch import convert  # noqa: E402
 from sedumi_tpu_torch.ipm import DenseSchurEngine  # noqa: E402
+from sedumi_tpu_torch.opA import DenseAOp  # noqa: E402
+from sedumi_tpu_torch.structs import cv_cast  # noqa: E402
 from sedumi_tpu_torch.nt import Scaling  # noqa: E402
 from sedumi_tpu_torch.parallel import entry  # noqa: E402
 from sedumi_tpu_torch.parallel import panels as tpanels  # noqa: E402
 from sedumi_tpu_torch.parallel.launch import run_spmd  # noqa: E402
 
 N = 4          # ranks of the port, devices of the reference's mesh
+EPS32 = float(np.finfo(np.float32).eps)
 
 
 def _spd(m, rng, cond=1e3):
@@ -70,6 +76,8 @@ def case():
     jobs = [("chol", M_chol, 8), ("solve", M_solve, b_solve, 4),
             ("chol", M_bad, 8),
             ("engine", aop_np, S_np, reg, rhs, 4)]
+    jobs += [("engine", aop_np, S_np, reg, rhs, 4, "float32", fdt)
+             for fdt in (None, "float64")]
     port = run_spmd(entry.rank_panel_jobs, N, args=(jobs, "cpu"),
                     device="cpu", timeout_s=240)
     mesh = jmake_mesh(N)
@@ -159,6 +167,39 @@ def test_panel_engine_matches_dense_engine(case):
     assert np.allclose(ahc, ahc_d.numpy(), atol=1e-10)
     assert np.allclose(float(chc), float(chc_d), atol=1e-10)
     assert np.allclose(x, x_d, rtol=1e-8, atol=1e-10 * np.abs(x_d).max())
+
+
+@pytest.mark.parametrize("k,fdt,tol", [(4, None, 1e-5),
+                                       (5, torch.float64, 1e-6)])
+def test_panel_engine_ladder_phases_match_dense_engine(case, k, fdt, tol):
+    """PanelSchurEngine as the ladder's phases run it under a mesh, on
+    the reference test's inputs in f32: formed, factored and solved in
+    f32 (the f32 phase; K14-f32/K15-f32's plain versions here), and
+    formed in f32 with an f64 factor (the hybrid phase's factor_dtype, as
+    ipm.make_step sets it), against the port's DenseSchurEngine in the
+    same dtypes: ahc and chc (the same f32 formation, summed in another
+    thread count's order) within 4 eps_f32 of their largest entry, x in
+    f32 within `tol` of max|x| (the f32 factors' refinements differ: cond
+    eps_f32; the f64 factor's solve rounds once to f32), the same x on
+    every rank."""
+    f32 = torch.float32
+    aop = convert.dense_aop_from_numpy(*case["aop_np"], device="cpu")
+    aop = DenseAOp(aop.Al.to(f32), [a.to(f32) for a in aop.Aq],
+                   [a.to(f32) for a in aop.As], aop.q_shapes, aop.s_shapes)
+    S = cv_cast(convert.scaling_from_numpy(case["S_np"], device="cpu"), f32)
+    dense = DenseSchurEngine(factor_dtype=fdt)
+    ctx, ahc_d, chc_d, ok_d = dense.prepare(aop, S, case["reg"])
+    x_d = dense.solve(ctx, torch.as_tensor(case["rhs"], dtype=f32)).numpy()
+    for out in case["port"]:
+        ahc, chc, ok, x = out[k]
+        assert ok and ok_d
+        assert x.dtype == np.float32 and ahc.dtype == np.float32
+        amax = max(1.0, float(ahc_d.abs().max()))
+        assert np.abs(ahc - ahc_d.numpy()).max() <= 4 * EPS32 * amax
+        assert abs(float(chc) - float(chc_d)) <= 4 * EPS32 * max(
+            1.0, abs(float(chc_d)))
+        assert np.abs(x - x_d).max() <= tol * np.abs(x_d).max()
+        np.testing.assert_array_equal(x, case["port"][0][k][3])
 
 
 @pytest.mark.parametrize("j", [0, 2, 4])

@@ -4,9 +4,12 @@ pars.mesh_shape) against the reference's, on the CPU.
 The port's mesh runs on 4 gloo ranks (parallel.launch.run_spmd: one
 spawn serves the whole module); the reference's on its 8 virtual
 devices.  Mirrors tests/test_parallel.py (entry, dryrun_multichip, the
-sharded step) and the end-to-end panel solve of tests/test_panels.py, and
-checks the routes that need no spawn: a world smaller than the mesh, dd64
-under a mesh, the ladder under a mesh and the sparse route.
+sharded step) and the end-to-end panel solve of tests/test_panels.py,
+holds the precision ladder under a mesh ('mixed' on {"hosts": 2,
+"panels": 2}) to the port's unsharded 'mixed' solve (the reference's mesh
+'mixed' solve, ~74 s on a CPU, is `slow`), and checks the routes that need
+no spawn: a world smaller than the mesh, dd64 under a mesh, the ladder's
+mesh plan and phases and the sparse route.
 """
 
 import sys
@@ -30,6 +33,10 @@ from sedumi_tpu_torch.parallel.launch import run_spmd  # noqa: E402
 
 N = 4
 E2E = ("feasible", {"l": 6, "q": [4, 4], "s": [6, 6]}, 25, 7)
+# the precision ladder under a mesh: the f32 phase on the panel engine in
+# f32, the formation split over "hosts"
+MIXED_MESH = {"fid": 0, "mesh_shape": {"hosts": 2, "panels": 2},
+              "dtype": "mixed"}
 
 
 def _e2e_data():
@@ -46,7 +53,8 @@ def spmd():
              ("rank_sedumi", (E2E, {"fid": 0, "mesh_shape": {"panels": 4}})),
              ("rank_sedumi", (E2E, {"fid": 0,
                                     "mesh_shape": {"hosts": 2,
-                                                   "panels": 2}}))]
+                                                   "panels": 2}})),
+             ("rank_sedumi", (E2E, MIXED_MESH))]
     return run_spmd(entry.rank_batch, N, args=(calls, "cpu"), device="cpu",
                     timeout_s=300)
 
@@ -136,6 +144,55 @@ def test_hosts_panels_matches_unsharded(spmd, unsharded):
         np.testing.assert_array_equal(p["x"], spmd[0][3]["x"])
 
 
+@pytest.fixture(scope="module")
+def unsharded_mixed():
+    At, b, c, K = _e2e_data()
+    x, y, info = pt.sedumi(At, b, c, K, {"fid": 0, "dtype": "mixed"},
+                           device="cpu")
+    return x, y, info, float(c @ x)
+
+
+def test_mixed_ladder_under_a_mesh(spmd, unsharded_mixed):
+    """'mixed' on {"hosts": 2, "panels": 2} (4 ranks): the mesh's ladder
+    (f32 first, no dd64) lands within 1e-6 relative of the port's
+    unsharded 'mixed' c'x (which tests/test_torch_precision.py holds to
+    the reference) with pinf = dinf = 0 and numerr < 2; every rank
+    returns the same x, y and info."""
+    _, _, info0, cx0 = unsharded_mixed
+    p = spmd[0][4]
+    print(f"\nmesh 'mixed' phases {p['phases']} (unsharded "
+          f"{ {k: v['iters'] for k, v in info0['phases'].items()} }); comm "
+          f"{p['comm_calls']} calls {p['comm_s']:.2f} s of {p['wall']:.2f} s")
+    assert p["info"]["pinf"] == 0 and p["info"]["dinf"] == 0
+    assert p["info"]["numerr"] < 2
+    assert abs(p["cx"] - cx0) <= 1e-6 * abs(cx0)
+    assert next(iter(p["phases"])) == "f32" and "dd64" not in p["phases"]
+    assert set(p["phases"]) <= {"f32", "hybrid", "host64"}
+    for r in spmd[1:]:
+        q = r[4]
+        np.testing.assert_array_equal(q["x"], p["x"])
+        np.testing.assert_array_equal(q["y"], p["y"])
+        assert q["info"] == p["info"] and q["phases"] == p["phases"]
+
+
+@pytest.mark.slow
+def test_mixed_ladder_under_a_mesh_matches_reference(spmd):
+    """The reference's own mesh 'mixed' solve of the same instance on the
+    same mesh (its virtual devices; ~74 s on a CPU): c'x within 1e-6
+    relative, the same pinf, dinf and numerr, and neither ladder reaches
+    dd64."""
+    At, b, c, K = _e2e_data()
+    xr, yr, info_r = jsedumi(At, b, c, K, dict(MIXED_MESH))
+    cxr = float(c @ xr)
+    p = spmd[0][4]
+    print(f"\nmesh 'mixed': port {p['phases']}, reference "
+          f"{ {k: v['iters'] for k, v in info_r['phases'].items()} }")
+    for key in ("pinf", "dinf", "numerr"):
+        assert p["info"][key] == info_r[key], key
+    assert abs(p["cx"] - cxr) <= 1e-6 * abs(cxr)
+    assert "dd64" not in info_r["phases"] and "dd64" not in p["phases"]
+
+
 def test_world_smaller_than_mesh_runs_unsharded(unsharded):
     """No process group: the mesh is not built, the solve is the unsharded
     one (dd64 admitted as without a mesh), bit for bit."""
@@ -171,10 +228,21 @@ def world4(monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["mixed", "float32"])
 def test_ladder_under_a_mesh_raises(world4, dtype):
+    """The ladder under a mesh, which this test once found refused
+    (ROADMAP A10b), is admitted: mesh_plan builds the mesh (the panel
+    engine on "blocks"), and the phases are the reference's mesh ladder,
+    [f32, hybrid, host64] under 'mixed' and [f32] under 'float32', with
+    no dd64 (solver.py:636-644 of the reference)."""
+    from sedumi_tpu_torch.transform import pretransfo
+
+    mode = "mixed" if dtype == "mixed" else "f32"
     pars = Pars.make({"mesh_shape": {"panels": 4}, "dtype": dtype})
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        solver.mesh_plan(pars, "dense", "mixed" if dtype == "mixed"
-                         else "f32")
+    assert solver.mesh_plan(pars, "dense") == ({"blocks": 4}, (), "blocks")
+    At, b, c, K = _e2e_data()
+    prob = pretransfo(At, b, c, K, Pars(fid=0))
+    m = prob.At.shape[1]
+    assert solver.phase_ladder("dense", prob.layout, m, mode, mesh=True) \
+        == (["f32", "hybrid", "host64"] if dtype == "mixed" else ["f32"])
 
 
 @pytest.mark.parametrize("shape,plan", [
@@ -189,22 +257,21 @@ def test_mesh_plan_follows_the_reference(world4, shape, plan):
     """The reference's axes (solver.py:321-335, 357-369): a one-axis mesh
     is "blocks"; every axis but "panels" splits the formation; the panel
     engine takes "panels" when the mesh has it."""
-    assert solver.mesh_plan(Pars.make({"mesh_shape": shape}), "dense",
-                            "f64") == plan
+    assert solver.mesh_plan(Pars.make({"mesh_shape": shape}),
+                            "dense") == plan
 
 
 def test_sparse_route_ignores_the_mesh(world4):
     pars = Pars.make({"mesh_shape": {"hosts": 2, "panels": 2},
                       "dtype": "mixed"})
-    assert solver.mesh_plan(pars, "sparse", "mixed") == \
+    assert solver.mesh_plan(pars, "sparse") == \
         ({"hosts": 2, "panels": 2}, (), None)
 
 
 def test_world_larger_than_mesh_raises(monkeypatch):
     monkeypatch.setattr(solver, "world_size", lambda: 8)
     with pytest.raises(ValueError, match="process group"):
-        solver.mesh_plan(Pars.make({"mesh_shape": {"panels": 4}}), "dense",
-                         "f64")
+        solver.mesh_plan(Pars.make({"mesh_shape": {"panels": 4}}), "dense")
     assert torch.distributed.is_available()
 
 

@@ -5,10 +5,14 @@
 * every live pars variant of the f64 path converges (the reference's
   test_pars_live, on the port);
 * argument sniffing, checkpoint/resume, the infeasibility certificate;
-* the routes the port does not cover raise NotImplementedError (the
-  precision ladder itself: tests/test_torch_precision.py).
+* pars.debug and pars.profile run and change no value, the sanitizer
+  names the first non-finite leaf of a step, and the ladder under a mesh
+  is admitted (its solves: tests/test_torch_parallel.py; the precision
+  ladder itself: tests/test_torch_precision.py).
 Full arch0/control07 CPU solves are `slow`.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -120,18 +124,96 @@ def test_checkpoint_resume(tmp_path):
     ({"mesh_shape": {"blocks": 2}, "dtype": "mixed"}, "item 10"),
     ({"profile": 1}, "item 11")])
 def test_unported_routes_raise(pars, item, monkeypatch):
-    """Routes the port does not cover raise instead of falling back.  (The
-    precision ladder on the sparse engine is ported: its solves are held in
-    tests/test_torch_sparse_precision.py.  The f64 mesh is ported, its
-    solves held in tests/test_torch_parallel.py; the ladder under a mesh
-    raises (item 10b) once the process group holds the mesh's ranks, which
-    the test stands in for without spawning them.)"""
+    """The three routes this test once found unported (ROADMAP queue A,
+    `item`) are ported and raise no more.  pars.debug and pars.profile run
+    a whole solve on the CPU, bit for bit the solve without them (with
+    info["profile"] for the latter); the precision ladder under a mesh is
+    admitted by solver.mesh_plan once the process group holds the mesh's
+    ranks, which the test stands in for without spawning them (the
+    ladder's mesh solves are held in tests/test_torch_parallel.py)."""
     from sedumi_tpu_torch import solver
+    from sedumi_tpu_torch.params import Pars
 
     monkeypatch.setattr(solver, "world_size", lambda: 2)
+    if "mesh_shape" in pars:
+        assert solver.mesh_plan(Pars.make(pars), "dense") == \
+            ({"blocks": 2}, ("blocks",), None)
+        return
     At, b, c, K = _problem()
-    with pytest.raises(NotImplementedError, match=item):
-        pt.sedumi(At, b, c, K, {"fid": 0, **pars}, device="cpu")
+    x, y, info = pt.sedumi(At, b, c, K, {"fid": 0, **pars}, device="cpu")
+    x0, y0, _ = pt.sedumi(At, b, c, K, {"fid": 0}, device="cpu")
+    np.testing.assert_array_equal(x, x0)
+    np.testing.assert_array_equal(y, y0)
+    assert ("profile" in info) == ("profile" in pars)
+
+
+def _poison(out, leaf: str):
+    """A step's (new_state, stats) with a NaN in the named leaf."""
+    state, st = out
+    if leaf.startswith("stats."):
+        f = leaf[len("stats."):]
+        return state, st._replace(**{f: getattr(st, f) * float("nan")})
+    if "[" not in leaf:
+        fam, part = leaf.split(".") if "." in leaf else (leaf, None)
+        if part is None:
+            return state._replace(**{fam: getattr(state, fam)
+                                     * float("nan")}), st
+        cv = getattr(state, fam)
+        return state._replace(**{fam: cv._replace(
+            **{part: getattr(cv, part) * float("nan")})}), st
+    fam, rest = leaf.split(".")
+    part, idx = rest[:-1].split("[")
+    cv = getattr(state, fam)
+    blocks = list(getattr(cv, part))
+    blocks[int(idx)] = blocks[int(idx)] * float("nan")
+    return state._replace(**{fam: cv._replace(**{part: tuple(blocks)})}), st
+
+
+@pytest.mark.parametrize("leaves,named", [
+    (("x.l",), "x.l"), (("y",), "y"), (("kappa",), "kappa"),
+    (("stats.mu",), "stats.mu"), (("z.q[1]",), "z.q[1]"),
+    (("x.s[0]", "stats.alpha", "z.s[0]"), "stats.alpha")])
+def test_debug_names_the_first_non_finite_leaf(monkeypatch, leaves, named):
+    """pars.debug's sanitizer (reference solver.py:184-215): a step that
+    emits NaN in `leaves` (on its third call) raises FloatingPointError
+    naming the first of them in the reference's order (x.l, y, tau,
+    kappa, stats, then the x.q, x.s, z.q, z.s blocks)."""
+    _poison_third_step(monkeypatch, leaves)
+    At, b, c, K = _problem()
+    with pytest.raises(FloatingPointError,
+                       match=rf"non-finite values in '{re.escape(named)}'"):
+        pt.sedumi(At, b, c, K, {"fid": 0, "debug": 1}, device="cpu")
+
+
+def test_without_debug_a_non_finite_step_is_rejected(monkeypatch):
+    """The same poisoned step without pars.debug: rejected anonymously
+    (mu is NaN), and the solve goes on to a finite answer."""
+    _poison_third_step(monkeypatch, ("stats.mu",))
+    At, b, c, K = _problem()
+    x, y, info = pt.sedumi(At, b, c, K, {"fid": 0}, device="cpu")
+    assert np.all(np.isfinite(x)) and info["pinf"] == 0
+
+
+def _poison_third_step(monkeypatch, leaves) -> None:
+    """ipm.make_step's steps emit NaN in `leaves` on their third call."""
+    from sedumi_tpu_torch import ipm
+
+    make_step = ipm.make_step
+
+    def poisoned_make_step(*args, **kw):
+        step = make_step(*args, **kw)
+        calls = [0]
+
+        def bad(*a, **k):
+            out = step(*a, **k)
+            calls[0] += 1
+            if calls[0] == 3:
+                for leaf in leaves:
+                    out = _poison(out, leaf)
+            return out
+        return bad
+
+    monkeypatch.setattr(ipm, "make_step", poisoned_make_step)
 
 
 @pytest.mark.slow
