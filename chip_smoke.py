@@ -1828,6 +1828,19 @@ def try_graph_ms(label: str, fn):
         return None
 
 
+# K14/K15's graph-replay ms before their one-launch, reciprocal-rule
+# redesign (the earlier build's run on an H100 80GB HBM3 at 700 W, PERF.md
+# section 6), printed beside this run's; never part of the kernels line,
+# whose numbers are all measured here
+PANEL_EARLIER_GRAPH_MS = {
+    "dist_panel_chol": 1.09, "dist_trisolve_fwd": 0.02729,
+    "dist_trisolve_bwd_contrib": 0.003974,
+    "dist_trisolve_bwd_solve": 0.02878, "dist_panel_chol_f32": 0.9511,
+    "dist_trisolve_fwd_f32": 0.02059,
+    "dist_trisolve_bwd_contrib_f32": 0.003527,
+    "dist_trisolve_bwd_solve_f32": 0.02268}
+
+
 def check_panel_kernels(dev, gen, dtype=torch.float64):
     """K14 and K15 (K14-f32 and K15-f32 for float32) against their plain
     versions and, bit for bit, the emulation of their order at the mesh
@@ -1947,8 +1960,9 @@ def check_panel_kernels(dev, gen, dtype=torch.float64):
         what = f"the {nb} columns of one factor" \
             if key == "err_l" else "one step"
         print(f"{name} bs={bs} mp={mp}, {what}: {ms:.4g} ms (graph replay "
-              f"{gms:.4g}; plain {pms:.4g}; {label}: {lms:.4g}, graph "
-              f"replay {lgms}; bound {b_ms:.3g} by {b_by})", flush=True)
+              f"{gms:.4g}, earlier build's {PANEL_EARLIER_GRAPH_MS[name]}; "
+              f"plain {pms:.4g}; {label}: {lms:.4g}, graph replay {lgms}; "
+              f"bound {b_ms:.3g} by {b_by})", flush=True)
         if key == "err_l":
             def col0():
                 return pn.panel_chol_step(Cs[0], 0)
@@ -2877,7 +2891,10 @@ def run_mesh(name, shape, nprocs, cx_unsharded=None, pars_list=({},)):
     also take the f32 phase and launch K14-f32 and K15-f32, and no phase
     may be dd64.  OH is held to the unsharded solve's c'x within 1e-6
     (1 + |c'x|) with pinf = dinf = 0, numerr < 2; nb to the reference
-    gate.  Returns the launches summed over the ranks and the solves."""
+    gate.  Prints, per rank, the wall, the collectives, their share of
+    the wall and the bytes received in them (parallel.mesh.COMM), and the
+    peak of allocated device memory over the solve.  Returns the launches
+    summed over the ranks and the solves."""
     from sedumi_tpu_torch.examples import load_example
     from sedumi_tpu_torch.parallel import entry
     from sedumi_tpu_torch.parallel.launch import run_spmd
@@ -2912,8 +2929,11 @@ def run_mesh(name, shape, nprocs, cx_unsharded=None, pars_list=({},)):
               f"{json.dumps(r0['phases'])} phase walls per rank "
               f"{[r['phase_wall'] for r in res]} collectives per rank "
               f"{[r['comm_calls'] for r in res]}, share of the wall "
-              f"{[round(s, 4) for s in share]} launches per rank "
-              f"{[r['launches'] for r in res]}", flush=True)
+              f"{[round(s, 4) for s in share]}, bytes received in them "
+              f"per rank {[r['comm_bytes'] for r in res]}, peak allocated "
+              f"device memory per rank {[r['peak_bytes'] for r in res]} "
+              f"launches per rank {[r['launches'] for r in res]}",
+              flush=True)
         if not all(np.array_equal(r["x"], r0["x"]) and
                    np.array_equal(r["y"], r0["y"]) for r in res):
             fail(f"{label}: the ranks returned different solutions")

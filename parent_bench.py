@@ -2,7 +2,7 @@
 kernels, on one card.
 
     python3 parent_bench.py --parent DIR
-        [--cases tiles,panels,dd,k13,gemv,schur,ldl,twins,solves]
+        [--cases tiles,panels,dd,k13,gemv,schur,ldl,twins,solves,mesh]
         [--plans lp20k,sdp5k,sdp1200]
         [--problems arch0,control07] [--repeat N]
 
@@ -24,11 +24,14 @@ mean and runs.  The cases (all by default):
   (K10), the builds' solutions' largest difference; and at lp20k's
   widest level K8's diagonal and off launches apart, the builds bit for
   bit equal;
-* panels: K14 and K15 at the mesh path's panel shapes
-  (chip_smoke.panel_case: OH's bs 128, mp 1024 and nb's bs 32, mp 128):
-  K14 on column 0 and over the columns of one factor, K15's forward
-  step, backward contribution and back solve, the builds within
-  chip_smoke.PANEL_TOL and this build bit for bit its emulation;
+* panels: K14 and K15, and their f32 builds, at the mesh path's panel
+  shapes (chip_smoke.panel_case: OH's bs 128, mp 1024 and nb's bs 32,
+  mp 128): K14 on column 0 and over the columns of one factor, K15's
+  forward step, backward contribution and back solve, the builds within
+  chip_smoke.PANEL_CASE's tolerance (and whether bit for bit) and this
+  build bit for bit its emulation; and K14 over every column of one
+  factor at mp 4096 and 16384 (bs 128, events; k14_at_scale) beside
+  torch.linalg.cholesky_ex of the whole matrix;
 * dd: on one matrix of cond 1e14 at control07's m = 666 and arch0's
   m = 174, K7 on the first panel (m x 48), a whole dd_chol, and each
   build's dd_chol_solve on its own factor, and K6 on control07's m x m
@@ -62,7 +65,16 @@ mean and runs.  The cases (all by default):
 * solves: whole solves of --problems (bundled examples) under 'auto' and
   'mixed' (a warm-up solve each first), the turns repeated --repeat
   times: each build's wall, iterations, phases with their walls, rel and
-  numerr, and how often each build landed at each (phases, rel).
+  numerr, and how often each build landed at each (phases, rel);
+* mesh: chip_smoke.MESH_SOLVES (OH {"panels": 2} on 2 ranks, nb
+  {"hosts": 2, "panels": 2} on 4, f64 and 'mixed') by each build in a
+  process of its own (the earlier build, then this one; their ranks
+  share the card under gloo): per rank the wall, the collectives and the
+  bytes received in them (torch.distributed's collectives wrapped in the
+  ranks, one model for both builds), their share of the wall and the
+  peak of allocated device memory; then deterministically, each build's
+  x and y compared bit for bit.  --repeat N runs the solves as they run
+  N times, the builds' order alternating between rounds.
 
 Prints a line per case's row, then one JSON line of all rows, the card's
 name and power limit.  Needs a CUDA device; exits 1 without one.
@@ -307,28 +319,73 @@ def panels_case(old, dev, args) -> dict:
     from sedumi_tpu_torch.parallel import panels as pn
 
     old_pn = old_module("parallel.panels")
-    gen = torch.Generator().manual_seed(20261016)
     out = {}
-    for bs, mp in cs.PANEL_SHAPES:
-        c = cs.panel_case(bs, mp, gen, dev)
-        if not c["emu_ok"]:
-            cs.fail(f"this build differs from its emulation at bs={bs}")
-        calls = {"earlier": panel_steps(old_pn, c, bs, mp),
-                 "this": panel_steps(pn, c, bs, mp)}
-        lmax = float(c["L"].abs().max())
-        xmax = float(c["x"].abs().max())
-        for name in calls["this"]:
-            got = {who: calls[who][name]() for who in calls}
-            if name == "k14_factor":
-                got = {who: torch.stack(v) for who, v in got.items()}
-            diff = float((got["this"] - got["earlier"]).abs().max())
-            scale = lmax if name.startswith("k14") else xmax
-            if not diff <= cs.PANEL_TOL * scale:
-                cs.fail(f"{name} bs={bs}: the builds differ by {diff!r}")
-            row = turns({who: calls[who][name] for who in calls})
-            row["max_diff"], row["of"] = diff, scale
-            report(out, f"panels bs={bs} mp={mp} {name}", row)
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator().manual_seed(20261016)
+        sfx = " f32" if dtype == torch.float32 else ""
+        for bs, mp in cs.PANEL_SHAPES:
+            c = cs.panel_case(bs, mp, gen, dev, dtype)
+            if not c["emu_ok"]:
+                cs.fail(f"this build differs from its emulation at bs={bs}"
+                        f"{sfx}")
+            calls = {"earlier": panel_steps(old_pn, c, bs, mp),
+                     "this": panel_steps(pn, c, bs, mp)}
+            lmax = float(c["L"].abs().max())
+            xmax = float(c["x"].abs().max())
+            for name in calls["this"]:
+                got = {who: calls[who][name]() for who in calls}
+                if name == "k14_factor":
+                    got = {who: torch.stack(v) for who, v in got.items()}
+                diff = float((got["this"] - got["earlier"]).abs().max())
+                scale = lmax if name.startswith("k14") else xmax
+                if not diff <= cs.PANEL_CASE[dtype]["tol"] * scale:
+                    cs.fail(f"{name} bs={bs}{sfx}: the builds differ by "
+                            f"{diff!r}")
+                row = turns({who: calls[who][name] for who in calls})
+                row["max_diff"], row["of"] = diff, scale
+                row["same_bits"] = bool(torch.equal(got["this"],
+                                                    got["earlier"]))
+                report(out, f"panels{sfx} bs={bs} mp={mp} {name}", row)
+    for dtype in (torch.float64, torch.float32):
+        for mp in PANEL_SCALE_MP:
+            report(out, f"panels{' f32' if dtype == torch.float32 else ''}"
+                   f" bs=128 mp={mp} k14_factor",
+                   k14_at_scale(old_pn, pn, mp, dev, dtype))
     return out
+
+
+# K14 over one factor's columns at orders past one wave of its grid (bs
+# 128: column j launches (nb - 1 - j) * 4 CTAs, one an SM in f64)
+PANEL_SCALE_MP = (4096, 16384)
+
+
+def k14_at_scale(old_pn, pn, mp: int, dev, dtype) -> dict:
+    """Both builds' K14 over every block column of one [mp, mp] factor
+    at bs 128 (the columns as one rank sees them: chip_smoke.panel_columns),
+    events only (a column's launch costs little beside its work), whether
+    the builds agree bit for bit, and one torch.linalg.cholesky_ex of the
+    whole matrix beside them.  The matrix A A'/mp + I, Jacobi-scaled, is
+    made on the card from a seed."""
+    import chip_smoke as cs
+
+    g = torch.Generator(device=dev).manual_seed(20261018)
+    A = torch.randn(mp, mp, generator=g, device=dev, dtype=torch.float64)
+    M = A @ A.T / mp + torch.eye(mp, dtype=torch.float64, device=dev)
+    del A
+    d = torch.sqrt(torch.diagonal(M))
+    M = (M / (d[:, None] * d[None, :])).to(dtype)
+    Cs, _ = cs.panel_columns(M, 128)
+    calls = {who: (lambda p=p: [p.panel_chol_step(C, j)
+                                for j, C in enumerate(Cs)])
+             for who, p in (("earlier", old_pn), ("this", pn))}
+    a, b = calls["earlier"](), calls["this"]()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    del a, b
+    row = turns(calls, graph=False, reps=3)
+    row["same_bits"] = same
+    row["columns"] = mp // 128
+    row["cholesky_ex_ms"] = cs.cuda_ms(lambda: torch.linalg.cholesky_ex(M), 3)
+    return row
 
 
 # --------------------------------------------------------------------- dd
@@ -870,9 +927,205 @@ def solves_case(old, dev, args) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- mesh
+
+
+def _count_collectives() -> dict:
+    """Wraps torch.distributed's collectives in this process so that each
+    call adds to the returned counts: calls, and the bytes this rank
+    receives in it under parallel.mesh.COMM's model (a ring all-reduce or
+    all-gather, a direct broadcast, scatter or all-to-all).  Either
+    build's mesh goes through them, so both are counted alike: builds
+    before row panels keep no byte count of their own (this one's,
+    mesh.COMM's, is reported beside it as comm_bytes and should agree)."""
+    import torch.distributed as dist
+
+    stats = {"calls": 0, "bytes": 0}
+
+    def n_of(group):
+        return dist.get_world_size(group)
+
+    def me(group):
+        return dist.get_rank(group)
+
+    def gsrc(src, group):
+        return src if group is None else dist.get_group_rank(group, src)
+
+    rules = {
+        "all_reduce": lambda t, *a, group=None, **k:
+            2 * t.nbytes * (n_of(group) - 1) / n_of(group),
+        "broadcast": lambda t, src=0, group=None, **k:
+            0 if me(group) == gsrc(src, group) else t.nbytes,
+        "scatter": lambda t, lst=None, src=0, group=None, **k:
+            0 if me(group) == gsrc(src, group) else t.nbytes,
+        "all_gather_into_tensor": lambda out, t, group=None, **k:
+            t.nbytes * (n_of(group) - 1),
+        "all_to_all_single": lambda out, t, outs=None, ins=None,
+            group=None, **k: out.nbytes - (
+                outs[me(group)] * out[0].nbytes if outs
+                else out.nbytes // n_of(group)),
+    }
+    for name, rule in rules.items():
+        fn = getattr(dist, name, None)
+        if fn is None:
+            continue
+
+        def counted(*a, _fn=fn, _rule=rule, **k):
+            stats["calls"] += 1
+            stats["bytes"] += int(_rule(*a, **k))
+            return _fn(*a, **k)
+
+        setattr(dist, name, counted)
+    return stats
+
+
+def mesh_rank(rank: int, calls: list, device="cuda") -> list:
+    """A rank's mesh solves for the mesh case: each call (problem, pars,
+    deterministic) by the build on sys.path (entry.rank_sedumi), with the
+    collectives counted (_count_collectives) and the peak of allocated
+    device memory over the solve; deterministic runs under
+    torch.use_deterministic_algorithms, so both builds' x and y can be
+    compared bit for bit."""
+    import hashlib
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    stats = _count_collectives()
+    from sedumi_tpu_torch.parallel import entry
+
+    out = []
+    for problem, pars, det in calls:
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        stats.update(calls=0, bytes=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = entry.rank_sedumi(rank, tuple(problem), pars, device=device)
+        torch.cuda.synchronize()
+        xy = hashlib.sha1(np.ascontiguousarray(r.pop("x")).tobytes()
+                          + np.ascontiguousarray(r.pop("y")).tobytes())
+        r.pop("launches")
+        r.update(deterministic=det, xy_sha1=xy.hexdigest(),
+                 wire_calls=stats["calls"], wire_bytes=stats["bytes"],
+                 peak_bytes=torch.cuda.max_memory_allocated())
+        out.append(r)
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def mesh_solves(solves: list, dets: list) -> list:
+    """Each (example, mesh shape, ranks, [pars]) of `solves` by the build
+    first on sys.path, as it runs (det False) and deterministically (det
+    True), for each det of `dets`, in one spawn per problem: every rank's
+    mesh_rank results."""
+    from sedumi_tpu_torch.parallel.launch import run_spmd
+
+    out = []
+    for name, shape, nprocs, pars_list in solves:
+        calls = [(("example", name), {"fid": 0, "mesh_shape": shape, **p},
+                  det) for det in dets for p in pars_list]
+        out.append(run_spmd(mesh_rank, nprocs, args=(calls, "cuda"),
+                            device="cuda", timeout_s=1500))
+    return out
+
+
+# run in a process whose sys.path holds a copy of this file and one
+# build's root, so the ranks import that build's sedumi_tpu_torch (the
+# parent's root holds a parent_bench.py of its own)
+_MESH_CHILD = """
+import json, sys
+copy, root, solves = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+sys.path[:0] = [copy, root]
+import parent_bench
+print("MESH " + json.dumps(parent_bench.mesh_solves(
+    solves, json.loads(sys.argv[4])), default=str))
+"""
+
+
+def mesh_case(old, dev, args) -> dict:
+    """chip_smoke.MESH_SOLVES by each build, each in a process of its own
+    whose sedumi_tpu_torch is that build's: per solve and rank the wall,
+    iterations, collectives (the build's own count and
+    _count_collectives'), the bytes received in them, the share of the
+    wall in them and the peak of allocated device memory; then the same
+    solves under deterministic algorithms, whose x and y must agree bit
+    for bit between the builds (or the landing moved: reported).  With
+    --repeat N the solves as they run come N times, the builds in turns
+    (earlier first in even rounds, this first in odd ones), each round's
+    walls and collective shares listed; the deterministic solves come in
+    the first round only."""
+    import chip_smoke as cs
+
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    copy = os.path.join(here, "sedumi_tpu_torch", "_build", "mesh_case")
+    os.makedirs(copy, exist_ok=True)
+    shutil.copy(os.path.abspath(__file__), copy)
+    solves = [(n, shape, k, list(pl)) for n, shape, k, _, pl
+              in cs.MESH_SOLVES]
+    roots = {"earlier": os.path.abspath(args.parent), "this": here}
+    got = {"earlier": [], "this": []}
+    for rnd in range(max(args.repeat, 1)):
+        dets = [False, True] if rnd == 0 else [False]
+        order = ("earlier", "this") if rnd % 2 == 0 else ("this", "earlier")
+        for who in order:
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-c", _MESH_CHILD, copy, roots[who],
+                 json.dumps(solves), json.dumps(dets)],
+                capture_output=True, text=True, timeout=3000)
+            line = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("MESH ")]
+            if proc.returncode or not line:
+                cs.fail(f"mesh case, {who} build, round {rnd}: exit "
+                        f"{proc.returncode}\n{proc.stderr[-4000:]}")
+            got[who].append(json.loads(line[-1][5:]))
+            print(f"mesh case, {who} build, round {rnd}: "
+                  f"{time.time() - t0:.1f}s", flush=True)
+    out = {}
+    keep = ("iter", "numerr")
+    for i, (name, shape, nprocs, pars_list) in enumerate(solves):
+        for det in (False, True):
+            for p, pars in enumerate(pars_list):
+                k = (1 if det else 0) * len(pars_list) + p
+                label = f"mesh {name} {json.dumps(shape)}" \
+                    + (f" {json.dumps(pars)}" if pars else "") \
+                    + (" deterministic" if det else "")
+                row = {}
+                for who in got:
+                    ranks = [r[k] for r in got[who][0][i]]
+                    row[who] = {
+                        "info": {f: ranks[0]["info"][f] for f in keep},
+                        "phases": ranks[0]["phases"], "cx": ranks[0]["cx"],
+                        "wall_s": [r["wall"] for r in ranks],
+                        "comm_calls": [r["comm_calls"] for r in ranks],
+                        "wire_calls": [r["wire_calls"] for r in ranks],
+                        "wire_bytes": [r["wire_bytes"] for r in ranks],
+                        "comm_bytes": [r.get("comm_bytes") for r in ranks],
+                        "comm_share": [r["comm_s"] / r["wall"]
+                                       for r in ranks],
+                        "peak_bytes": [r["peak_bytes"] for r in ranks],
+                        "same_x_on_every_rank": len({r["xy_sha1"]
+                                                     for r in ranks}) == 1,
+                        "xy_sha1": ranks[0]["xy_sha1"]}
+                    if not det:
+                        rounds = [[r[k] for r in g[i]] for g in got[who]]
+                        row[who]["rounds"] = [
+                            {"wall_s": [r["wall"] for r in rr],
+                             "iter": rr[0]["info"]["iter"],
+                             "comm_share": [r["comm_s"] / r["wall"]
+                                            for r in rr]}
+                            for rr in rounds]
+                if det:
+                    row["same_bits_as_earlier"] = \
+                        row["this"]["xy_sha1"] == row["earlier"]["xy_sha1"]
+                report(out, label, row)
+    return out
+
+
 CASES = {"tiles": tiles_case, "panels": panels_case, "dd": dd_case,
          "k13": k13_case, "gemv": gemv_case, "schur": schur_case,
-         "ldl": ldl_case, "twins": twins_case, "solves": solves_case}
+         "ldl": ldl_case, "twins": twins_case, "solves": solves_case,
+         "mesh": mesh_case}
 
 
 def main() -> None:

@@ -62,7 +62,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "div_rn.cuh"
+
 namespace {
+
+using dense::Div;   // quotients by Div's reciprocal rule (div_rn.cuh)
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int SMEM_MAX = 232448;  // shared memory a block may use
@@ -87,11 +91,6 @@ struct Bits<double> {
     return ((U)hm << 32) | lm;
   }
   static __device__ __forceinline__ double inf() { return CUDART_INF; }
-  static __device__ __forceinline__ double rcp(double d) {
-    return __drcp_rn(d);
-  }
-  // Div's safe range: |d|, |q| in [2^-1000, 2^1000], |x| >= 2^-960
-  static constexpr double LO = 0x1p-1000, HI = 0x1p1000, XLO = 0x1p-960;
 };
 
 template <>
@@ -108,8 +107,6 @@ struct Bits<float> {
     return __reduce_max_sync(FULL, u);
   }
   static __device__ __forceinline__ float inf() { return CUDART_INF_F; }
-  static __device__ __forceinline__ float rcp(float d) { return __frcp_rn(d); }
-  static constexpr float LO = 0x1p-120f, HI = 0x1p120f, XLO = 0x1p-90f;
 };
 
 template <typename T>
@@ -194,49 +191,6 @@ struct Pivot {
     const bool canc = acc < lb;
     dj = canc ? lb : acc;
     add = canc ? lb - acc : T(0);
-  }
-};
-
-// x / d correctly rounded, for one d and many x, without the division's
-// branches (so a lane's quotients overlap): y = RN(1/d) once, then q0 = x
-// y and two corrections q + (x - d q) y, each residual exact (fma).  With
-// y = RN(1/d) and q1 within an ulp of x/d, q2 = RN(x/d) (Markstein's
-// theorem) while nothing underflows or overflows: |d| and |q0| in
-// [LO, HI], |x| >= XLO (so x - d q is representable; x is finite when
-// q0 is).  A zero x gives its signed zero q0.  Where slow() holds (d or x
-// out of range, inf, NaN) the caller takes the division itself.
-template <typename T>
-struct Div {
-  T d, y;
-  bool ok;
-  __device__ __forceinline__ explicit Div(T dv) : d(dv) {
-    using B = Bits<T>;
-    y = B::rcp(d);
-    ok = fabs(d) >= B::LO && fabs(d) <= B::HI;
-  }
-  __device__ __forceinline__ T fast(T x) const {
-    const T q0 = x * y;
-    const T q1 = fma(fma(-d, q0, x), y, q0);
-    const T q2 = fma(fma(-d, q1, x), y, q1);
-    return x == T(0) ? q0 : q2;
-  }
-  __device__ __forceinline__ bool slow(T x) const {
-    using B = Bits<T>;
-    const T aq = fabs(x * y);
-    return !(ok && (x == T(0) || (fabs(x) >= B::XLO && aq >= B::LO &&
-                                  aq <= B::HI)));
-  }
-  // fast() holds for every x with |x| in [xmin, xmax] or zero (the
-  // products round monotonically; xmin: the least nonzero |x|, +inf for
-  // none; a NaN or inf xmax fails)
-  __device__ __forceinline__ bool fast_for(T xmin, T xmax) const {
-    using B = Bits<T>;
-    const T ay = fabs(y);
-    return ok && xmax * ay <= B::HI &&
-           (isinf(xmin) || (xmin >= B::XLO && xmin * ay >= B::LO));
-  }
-  __device__ __forceinline__ T operator()(T x) const {
-    return slow(x) ? x / d : fast(x);
   }
 };
 

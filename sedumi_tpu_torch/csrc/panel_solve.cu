@@ -17,13 +17,17 @@
 // Bound on the card: latency.  At OH's shapes (bs = 128, mp = 1024) a
 // forward step reads at most the 1 MiB row panel (0.31 us at 3.35 TB/s),
 // a contribution 512 KB; what sets the time is the triangle's chain of
-// bs dependent divisions and the launch.
+// bs dependent quotients and the launch.
 //
 // Design.  The triangles are K10's (tri_solve.cuh): Ljj packed by rows in
-// shared memory by cp.async, warp 0 solving each 32-row panel with its
-// rows in registers and shuffles while the other warps update the rows
-// below (above): one block barrier per panel, no device-memory load in
-// the chain.
+// shared memory by cp.async, warp 0 solving each 32-row panel while the
+// other warps update the rows below (above): one block barrier per panel,
+// no device-memory load in the chain.  Warp 0 runs a panel as a run-time
+// loop (small code), each lane's quotient by one reciprocal of its
+// diagonal entry, formed before the panel, and two fma corrections
+// (div_rn.cuh): a product and four fmas on the chain in place of a
+// division's ~125 cycles; a lane keeps the value it divided, and if Div's
+// range failed for one, the warp runs the panel again with the division.
 //   (a) a thread-block cluster of up to 8 CTAs splits the row product by
 //       column groups of FWD_GROUP: CTA q takes groups q, q + C, ...; a
 //       warp a row at a time, lanes on neighbouring columns (coalesced),
@@ -31,24 +35,31 @@
 //       shared memory.  The leader, whose Ljj fetch was in flight
 //       meanwhile, adds the partials group by group from the cluster's
 //       shared memory, r = bj - sum, then solves the triangle.
-//   (b) one cluster per 32-column chunk of the block column; its CTAs
-//       take the local rows in groups of BWD_GROUP (as K10's partials:
-//       eight warps split the group's rows, lanes on neighbouring
-//       columns, the warps' sums added in warp order); the leader adds
-//       the groups' partials in group order.  No atomics.
+//   (b) one cluster per chunk of the block column: in f64 a lane reads
+//       two columns in one 16-byte load (chunks of 64 columns; L3 must be
+//       16-byte aligned and mp, bs even, else the launch is refused), in
+//       f32 a lane one column (chunks of 32: the 16-byte form, four f32
+//       columns a lane, ran slower there, PERF.md §6); its CTAs take the
+//       local rows in groups of BWD_GROUP (as K10's partials: eight warps
+//       split the group's rows, in the f64 form each warp's loads all in
+//       flight before its sums, the warps' sums added in warp order); the
+//       leader adds the groups' partials in group order.  No atomics.
 //   (c) one block: the fetch, bj - contrib, the triangle.
 // Every sum's order is fixed by the group sizes, not by the cluster's
 // size, so two calls agree bit for bit whatever the grid, and
 // tests/panel_emulation.py repeats the kernels bit for bit.  bs <= 128.
-// The kernels are templates over the element type: the f64 builds are
-// K15, the f32 builds K15-f32 (the f32 phase of the precision ladder under
-// a mesh), with the same groups, so the same order; each kernel sizes its
-// shared memory by sizeof(Real) and its divisions are IEEE-rounded in
+// The kernels are templates over the element type (but for (b)'s two
+// forms, one a type): the f64 builds are K15, the f32 builds K15-f32 (the
+// f32 phase of the precision ladder under a mesh), with the same groups,
+// so the same order; each kernel sizes its
+// shared memory by sizeof(Real), and its quotients are the IEEE ones in
 // either type.
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <cstdint>
+#include <type_traits>
 
 #include "tri_solve.cuh"
 
@@ -162,6 +173,81 @@ panel_contrib_kernel(const Real *__restrict__ L3, const Real *__restrict__ x,
   cluster.sync();
 }
 
+// (b) in f64, with 16-byte loads: a lane reads two neighbouring columns
+// at once, so a warp covers 64 columns of a row; the rows, the warps' sums
+// and the groups keep panel_contrib_kernel's order.  Needs L3 and the
+// block column 16-byte aligned (mp and bs even).
+__global__ void __launch_bounds__(THREADS)
+panel_contrib_vec_kernel(const double *__restrict__ L3,
+                         const double *__restrict__ x, int bs, int mp,
+                         int nb_loc, int g0, int j,
+                         double *__restrict__ contrib) {
+  constexpr int VEC = 2, W = 32 * VEC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  double *part = reinterpret_cast<double *>(smem);   // [slot][W]
+  __shared__ __align__(16) double red[NWARPS][W];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b0 = blockIdx.y * W + VEC * lane;   // this lane's first column
+  const bool in = b0 < bs;
+  const int r0 = max(j - g0 + 1, 0);
+  const int t0 = r0 * bs, nrow = max(nb_loc - r0, 0) * bs;
+  const int ng = (nrow + BWD_GROUP - 1) / BWD_GROUP;
+  const double *T = L3 + (size_t)t0 * mp + (size_t)j * bs + b0;
+  const double *v = x + (size_t)(g0 + r0) * bs;
+  constexpr int RPW = BWD_GROUP / NWARPS;   // a warp's rows of a group
+  for (int g = q, s = 0; g < ng; g += nc, ++s) {
+    const int a0 = g * BWD_GROUP, a1 = min(a0 + BWD_GROUP, nrow);
+    double acc[VEC];
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) acc[u] = 0;
+    if (in) {
+      // every load of the warp's rows in flight, then the sums in order
+      double2 t[RPW];
+      double va[RPW];
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const int a = a0 + warp + NWARPS * i;
+        if (a < a1) {
+          t[i] = *reinterpret_cast<const double2 *>(T + (size_t)a * mp);
+          va[i] = v[a];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RPW; ++i)
+        if (a0 + warp + NWARPS * i < a1) {
+          acc[0] = acc[0] + t[i].x * va[i];
+          acc[1] = acc[1] + t[i].y * va[i];
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) red[warp][VEC * lane + u] = acc[u];
+    __syncthreads();
+    for (int c = threadIdx.x; c < W; c += THREADS) {
+      double t = red[0][c];
+#pragma unroll
+      for (int w = 1; w < NWARPS; ++w) t = t + red[w][c];
+      part[s * W + c] = t;
+    }
+    __syncthreads();
+  }
+  cluster.sync();
+  if (q == 0)
+    for (int c = threadIdx.x; c < W; c += THREADS) {
+      const int b = blockIdx.y * W + c;
+      if (b >= bs) continue;
+      double sum = 0;
+      for (int g = 0; g < ng; ++g) {
+        const double p =
+            cluster.map_shared_rank(part, g % nc)[(g / nc) * W + c];
+        sum = g ? sum + p : p;
+      }
+      contrib[b] = sum;
+    }
+  cluster.sync();
+}
+
 template <typename Real>
 __global__ void __launch_bounds__(THREADS)
 panel_bwd_solve_kernel(const Real *__restrict__ Ljj,
@@ -232,10 +318,19 @@ int contrib_launch(const Real *L3, const Real *x, Real *contrib, int bs,
   const int ng = (nrow + BWD_GROUP - 1) / BWD_GROUP;
   const int nc = cluster_size(ncta, ng);
   if (!nc) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(Real) * std::max((ng + nc - 1) / nc, 1) * 32;
-  return cluster_launch(panel_contrib_kernel<Real>,
-                        dim3(nc, (bs + 31) / 32), nc, smem, stream, L3, x,
-                        bs, mp, nb_loc, g0, j, contrib);
+  const int slots = std::max((ng + nc - 1) / nc, 1);
+  if constexpr (std::is_same<Real, double>::value) {
+    if ((uintptr_t)L3 % 16 || mp % 2 || bs % 2)
+      return (int)cudaErrorInvalidValue;
+    return cluster_launch(panel_contrib_vec_kernel, dim3(nc, (bs + 63) / 64),
+                          nc, sizeof(double) * slots * 64, stream, L3, x, bs,
+                          mp, nb_loc, g0, j, contrib);
+  } else {
+    return cluster_launch(panel_contrib_kernel<Real>,
+                          dim3(nc, (bs + 31) / 32), nc,
+                          sizeof(Real) * slots * 32, stream, L3, x, bs, mp,
+                          nb_loc, g0, j, contrib);
+  }
 }
 
 template <typename Real>
@@ -263,7 +358,8 @@ extern "C" int panel_fwd_step_launch(const double *row, const double *x,
 }
 
 // L3 [nb_loc * bs, mp] (this rank's contiguous panel, first natural block
-// g0), x [mp] -> contrib [bs]; ncta as above, per row group
+// g0; 16-byte aligned, mp and bs even), x [mp] -> contrib [bs]; ncta as
+// above, per row group
 extern "C" int panel_bwd_contrib_launch(const double *L3, const double *x,
                                         double *contrib, int bs, int mp,
                                         int nb_loc, int g0, int j, int ncta,

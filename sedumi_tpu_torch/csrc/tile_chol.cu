@@ -51,9 +51,7 @@
 //
 // Divisions go through div_pos: the card's double division takes a slow
 // path for a zero numerator, and sparse tiles hold many zeros.  The SYRK
-// and (b)'s solve are tri_factor.cuh's, shared with K14 (panel_chol.cu);
-// (a)'s column phase stays here (K14 factors a panel's triangle in one
-// warp instead).
+// and (b)'s solve are tri_factor.cuh's.
 //
 // Bound on the card: (a) does B^3/3 flops per diagonal tile, (b) B^3 per
 // off tile; both read and write each tile once.  At B = 128 a tile is

@@ -31,13 +31,13 @@
 // (66 KB at B = 128 in f64), staged by cp.async, and a block fetches its
 // tile of the next level while the grid meets at the barriers; panels of
 // 32 rows (fewer at the end when B is not a multiple of 32).  Warp 0
-// solves the panel's triangle with shuffles, its rows in registers (one
-// division per row, as a substitution does; no inverse), then every
-// thread updates one row below (above, backward) with the panel's values.
-// Warp 0 updates the next panel's rows itself, so it can go on without
-// waiting: one block barrier per panel.  The division of a zero takes the
-// card's slow path, so div_lane divides something else then.  The fetch
-// and both triangle solves are tri_solve.cuh's, shared with K15
+// solves the panel's triangle with shuffles (one quotient per row, as a
+// substitution does; no inverse: the IEEE quotient by div_rn.cuh's
+// reciprocal rule, the panel run again with the division where the rule's
+// range fails), then every thread updates one row below (above, backward)
+// with the panel's values.  Warp 0 updates the next panel's rows itself,
+// so it can go on without waiting: one block barrier per panel.  The
+// fetch and both triangle solves are tri_solve.cuh's, shared with K15
 // (panel_solve.cu).
 //
 // The kernels are templates: the f64 build is K10, the f32 build K10-f32
@@ -45,8 +45,8 @@
 //
 // Bound on the card: each L tile is read once per pass (2 B^2 flops per
 // 8 B^2 bytes, 4 B^2 in f32), so bytes bound it; but the levels form a
-// chain of 2 x levels dependent steps, each a 128-long substitution with
-// divisions, and a grid barrier between phases.  The design spends one
+// chain of 2 x levels dependent steps, each a 128-long substitution, and
+// a grid barrier between phases.  The design spends one
 // launch per pass and one barrier per phase on it.
 
 #include "tri_solve.cuh"

@@ -1,10 +1,11 @@
-// The factor pieces of K8 (tile_chol.cu) and K14 (panel_chol.cu): the
-// trailing update (SYRK) of a right-looking Cholesky blocked in panels of
-// PANEL columns, and the solve X = T L^-T of row chunks of a tile against
-// a factored diagonal block.  Both keep the order of operations of a
-// scalar right-looking factor: every entry receives its updates one
-// product at a time, k = 0, 1, ..., then its division (or square root);
-// tests/tile_emulation.py (chol_blocked, off_solve) repeats it.
+// The factor pieces of K8 (tile_chol.cu): the trailing update (SYRK) of a
+// right-looking Cholesky blocked in panels of PANEL columns, and the solve
+// X = T L^-T of row chunks of a tile against a factored diagonal block
+// (K14, panel_chol.cu, shares only load_lower).  Both keep the order of
+// operations of a scalar right-looking factor: every entry receives its
+// updates one product at a time, k = 0, 1, ..., then its division (or
+// square root); tests/tile_emulation.py (chol_blocked, off_solve)
+// repeats it.
 
 #pragma once
 

@@ -90,8 +90,8 @@ SOURCES = {
         "jacobi_herm_c128_launch": _JACOBI_ARGS,
         "jacobi_herm_c64_launch": _JACOBI_ARGS},
     "panel_chol.cu": {
-        "panel_chol_launch": [_P, _P, _I, _I, _I, _P],
-        "panel_chol_launch_f32": [_P, _P, _I, _I, _I, _P]},
+        "panel_chol_launch": [_P, _P, _I, _I, _I, _I, _P],
+        "panel_chol_launch_f32": [_P, _P, _I, _I, _I, _I, _P]},
     "panel_solve.cu": {
         "panel_fwd_step_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "panel_bwd_contrib_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,

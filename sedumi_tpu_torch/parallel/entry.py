@@ -27,7 +27,8 @@ from ..structs import cv_cast
 from ..transform import pretransfo
 from . import mesh as mesh_mod
 from .mesh import make_mesh, replicate, shard_aop, shard_state
-from .panels import PanelSchurEngine, _dist_trisolve, dist_cholesky
+from .panels import PanelSchurEngine, _dist_trisolve, all_finite, \
+    cyclic_rows, dist_cholesky
 
 
 def _small_problem(n_blocks_s: int = 2, n_blocks_q: int = 2, m: int = 6,
@@ -132,30 +133,44 @@ def rank_sharded_step(rank: int, n_blocks: int, m: int, seed: int,
 
 def rank_panel_jobs(rank: int, jobs: list, device="cuda") -> list:
     """The panel routines on numpy inputs, over a one-axis world mesh
-    "blocks": ("chol", M, bs) -> L; ("solve", M, b, bs) -> x from the
-    factor and both substitutions; ("engine", aop arrays, scaling arrays,
-    reg, rhs, bs[, dtype, factor dtype]) -> (ahc, chc, ok, x) of
-    PanelSchurEngine, its operator, scaling and rhs in `dtype` (a torch
-    dtype's name, float64 by default) and its factor in `factor dtype`
-    (None: the formation's; the hybrid phase's f64 factor of an f32
-    formation)."""
+    "blocks": ("chol", M, bs) -> {"panel": this rank's contiguous panel
+    of the factor, "L": the panels gathered to the whole factor, for the
+    tests}; ("solve", M, b, bs) -> x from the factor and both
+    substitutions; ("engine", aop arrays, scaling arrays, reg, rhs, bs[,
+    dtype, factor dtype]) -> (ahc, chc, ok, x, {"L", "ADApad": this
+    rank's panels of the context, "dg", "mp", "storage": the bytes of the
+    storages behind L and ADApad}) of PanelSchurEngine, its
+    operator, scaling and rhs in `dtype` (a torch dtype's name, float64
+    by default) and its factor in `factor dtype` (None: the formation's;
+    the hybrid phase's f64 factor of an f32 formation); ("finite", mp, bs,
+    bad_rank) -> all_finite on panels of [mp/n, mp] ones, NaN at one
+    entry of bad_rank's alone."""
     mesh = make_mesh(device=device)
+    n, my = mesh.axis_size("blocks"), mesh.axis_index("blocks")
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float64,
                                device=device)
+
+    def factor(M, bs):
+        M = t(M)
+        rows = cyclic_rows(n, my, M.shape[0] // (n * bs), bs, M.device)
+        return dist_cholesky(M[rows], mesh, "blocks", bs)
 
     out = []
     for job in jobs:
         kind = job[0]
         if kind == "chol":
             _, M, bs = job
-            out.append(dist_cholesky(t(M), mesh, "blocks", bs))
+            L3 = factor(M, bs)
+            out.append({"panel": L3, "L": mesh.all_gather(L3, "blocks")
+                        .reshape(-1, L3.shape[1])})
         elif kind == "solve":
             _, M, b, bs = job
-            L = dist_cholesky(t(M), mesh, "blocks", bs)
-            y = _dist_trisolve(L, t(b), mesh, "blocks", bs, lower=True)
-            out.append(_dist_trisolve(L, y, mesh, "blocks", bs, lower=False))
+            L3 = factor(M, bs)
+            y = _dist_trisolve(L3, t(b), mesh, "blocks", bs, lower=True)
+            out.append(_dist_trisolve(L3, y, mesh, "blocks", bs,
+                                      lower=False))
         elif kind == "engine":
             _, aop_np, S_np, reg, rhs, bs, *prec = job
             dt, fdt = (getattr(torch, prec[0]),
@@ -167,9 +182,51 @@ def rank_panel_jobs(rank: int, jobs: list, device="cuda") -> list:
             S = cv_cast(scaling_from_numpy(S_np, device=device), dt)
             eng = PanelSchurEngine(mesh, bs=bs, factor_dtype=fdt)
             ctx, ahc, chc, ok = eng.prepare(aop, S, reg)
-            out.append((ahc, chc, ok, eng.solve(ctx, t(rhs).to(dt))))
+            out.append((ahc, chc, ok, eng.solve(ctx, t(rhs).to(dt)),
+                        {"L": ctx.L, "ADApad": ctx.ADApad, "dg": ctx.dg,
+                         "mp": ctx.mp,
+                         "storage": [ctx.L.untyped_storage().nbytes(),
+                                     ctx.ADApad.untyped_storage().nbytes()]}))
+        elif kind == "finite":
+            _, mp, bs, bad = job
+            L3 = torch.ones(mp // n, mp, dtype=torch.float64, device=device)
+            if my == bad:
+                L3[-1, 0] = float("nan")
+            out.append(all_finite(L3, mesh))
         else:
             raise ValueError(f"unknown panel job {kind!r}")
+    return out
+
+
+def rank_collectives(rank: int, seed: int, device="cuda") -> dict:
+    """Mesh.all_gather, Mesh.broadcast and Mesh.all_true on the world mesh
+    {"hosts": 2, "panels": n/2}, on tensors made from seed + rank: the
+    all-gather beside the masked psum it replaced (each rank's tensor in
+    its own slot of a zero-filled buffer, all-reduced), over the world
+    and over "panels"; rank 0's f32, f64 and int64 tensors by broadcast,
+    with the collectives it took; all_true of rank-dependent flags."""
+    mesh = make_mesh(shape={"hosts": 2,
+                            "panels": mesh_mod.world_size() // 2},
+                     device=device)
+    gen = np.random.default_rng(seed + rank)
+    out = {}
+    for axis in (("hosts", "panels"), "panels"):
+        v = torch.as_tensor(gen.standard_normal((3, 5)), device=device)
+        buf = torch.zeros((mesh.axis_size(axis),) + tuple(v.shape),
+                          dtype=v.dtype, device=device)
+        buf[mesh.axis_index(axis)] = v
+        key = "world" if isinstance(axis, tuple) else axis
+        out[key] = (mesh.all_gather(v, axis), mesh.psum(buf, axis))
+    mine = [torch.as_tensor(gen.standard_normal(7), device=device)
+            .to(torch.float32),
+            torch.as_tensor(gen.standard_normal((2, 3)), device=device),
+            torch.as_tensor(gen.integers(-2**62, 2**62, 4), device=device),
+            torch.as_tensor(gen.standard_normal(5), device=device)
+            .to(torch.float32)]
+    calls = mesh_mod.COMM["calls"]
+    out["broadcast"] = (mine, mesh.broadcast(mine),
+                        mesh_mod.COMM["calls"] - calls)
+    out["all_true"] = (mesh.all_true(True), mesh.all_true(rank != 1))
     return out
 
 
@@ -178,8 +235,9 @@ def rank_sedumi(rank: int, problem: tuple, pars: dict,
     """One sedumi() solve on this rank: problem ("example", name) or
     ("feasible", K, m, seed).  Returns x, y, the solve's info fields that
     do not measure time, the iterations and wall seconds per phase, the
-    wall seconds, this rank's kernel launches, and its collectives and the
-    host seconds in them."""
+    wall seconds, this rank's kernel launches, its collectives, the host
+    seconds in them and the bytes it received in them (mesh.COMM), and on
+    the card its peak of allocated device memory during the solve."""
     import sedumi_tpu_torch as st
 
     if problem[0] == "example":
@@ -191,9 +249,10 @@ def rank_sedumi(rank: int, problem: tuple, pars: dict,
         _, K, m, seed = problem
         At, b, c, _ = feasible_problem(K, m, seed=seed)
     kernels.reset_launch_counts()
-    mesh_mod.COMM.update(calls=0, seconds=0.0)
+    mesh_mod.COMM.update(calls=0, seconds=0.0, bytes=0)
     if device != "cpu":
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     x, y, info = st.sedumi(At, b, c, K, pars, device=device)
     if device != "cpu":
@@ -210,7 +269,10 @@ def rank_sedumi(rank: int, problem: tuple, pars: dict,
             "wall": wall,
             "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
             "comm_calls": mesh_mod.COMM["calls"],
-            "comm_s": mesh_mod.COMM["seconds"]}
+            "comm_s": mesh_mod.COMM["seconds"],
+            "comm_bytes": mesh_mod.COMM["bytes"],
+            "peak_bytes": torch.cuda.max_memory_allocated()
+            if device != "cpu" else None}
 
 
 def rank_sedumi_witness(rank: int, problem: tuple, pars: dict, plain: bool,
@@ -240,5 +302,6 @@ def rank_batch(rank: int, calls: list, device="cuda") -> list:
     table = {"rank_dryrun": rank_dryrun,
              "rank_sharded_step": rank_sharded_step,
              "rank_panel_jobs": rank_panel_jobs,
+             "rank_collectives": rank_collectives,
              "rank_sedumi": rank_sedumi}
     return [table[name](rank, *args, device=device) for name, args in calls]

@@ -6,14 +6,13 @@ process per mesh position (as under torchrun or parallel.launch.run_spmd):
 every rank calls the same code on the same data, and rank r sits at the
 row-major coordinates r of the mesh shape.
 
-Collectives are all_reduce and broadcast only, each on the process group
-of one mesh axis (or of several), created by every rank in one fixed
-order when the Mesh is built.  An all-gather is an all_reduce of a
-zero-filled buffer in which each rank fills its own slot: exact, and the
-reference's masked-psum idiom (panels.py:144-145).  Gloo implements both
-for CUDA tensors (staged through the host), so ranks that share one card
-run under gloo; NCCL refuses two ranks on one card and is used when each
-rank has its own.
+Collectives run on the process group of one mesh axis (or of several),
+created by every rank in one fixed order when the Mesh is built:
+all_reduce, broadcast (one call per dtype, each tensor sent as itself),
+all-gather, scatter and all-to-all.  Gloo implements each of them for
+CUDA tensors (staged through the host), so ranks that share one card run
+under gloo; NCCL refuses two ranks on one card and is used when each rank
+has its own.
 
 The deliberate difference from the reference: the IPM state stays
 replicated on every rank, and the data axes split only the Schur
@@ -42,18 +41,23 @@ from ..structs import ConeVec
 
 BLOCK_AXIS = "blocks"
 
-# collectives run by this process and the host seconds spent in them (the
-# card's queued work is waited for before the clock starts)
-COMM = {"calls": 0, "seconds": 0.0}
+# collectives run by this process, the host seconds spent in them (the
+# card's queued work is waited for before the clock starts) and the bytes
+# this rank receives from the others in them, as a ring all-reduce or
+# all-gather and a direct broadcast, scatter or all-to-all move them
+COMM = {"calls": 0, "seconds": 0.0, "bytes": 0}
 
 
-def _collective(op, t: torch.Tensor, **kw) -> None:
+def _collective(fn, t: torch.Tensor, received: float, *args, **kw) -> None:
+    """fn(*args, **kw), counted in COMM; t is one of its tensors (on the
+    device whose queue is waited for), `received` its bytes in."""
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
-    op(t, **kw)
+    fn(*args, **kw)
     COMM["seconds"] += time.perf_counter() - t0
     COMM["calls"] += 1
+    COMM["bytes"] += int(received)
 
 
 def _axes(axis) -> tuple:
@@ -120,34 +124,88 @@ class Mesh:
         key = tuple(a for a in self.axis_names if a in names)
         return self._groups[key]
 
+    def root(self, axis) -> int:
+        """The global rank of the member of this rank's group of the axis
+        (or axes) at coordinate 0 along it: the group's root."""
+        names = _axes(axis)
+        coords = [0 if a in names else self.coords[a]
+                  for a in self.axis_names]
+        return int(np.ravel_multi_index(coords, tuple(self.shape.values())))
+
     def psum(self, t: torch.Tensor, axis) -> torch.Tensor:
         """The sum of t over the ranks of the axis (in place on a
         contiguous t, which is returned)."""
-        if self.axis_size(axis) == 1:
+        n = self.axis_size(axis)
+        if n == 1:
             return t
         t = t.contiguous()
-        _collective(dist.all_reduce, t, group=self._group(axis))
+        _collective(dist.all_reduce, t, 2 * t.nbytes * (n - 1) / n, t,
+                    group=self._group(axis))
         return t
 
     def all_gather(self, t: torch.Tensor, axis) -> torch.Tensor:
         """[n, *t.shape]: every rank's t along the axis, by position."""
         n = self.axis_size(axis)
-        buf = torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
-                          device=t.device)
-        buf[self.axis_index(axis)] = t
-        return self.psum(buf, axis)
+        if n == 1:
+            return t[None]
+        src = t.contiguous().reshape(-1)
+        out = torch.empty(n * src.numel(), dtype=t.dtype, device=t.device)
+        _collective(dist.all_gather_into_tensor, out, src.nbytes * (n - 1),
+                    out, src, group=self._group(axis))
+        return out.reshape((n,) + tuple(t.shape))
 
-    def broadcast(self, tensors: list) -> list:
-        """Global rank 0's values of the tensors, on every rank, in one
-        collective (packed as f64, each cast back to its own dtype)."""
-        flat = torch.cat([t.detach().to(torch.float64).reshape(-1)
-                          for t in tensors]).contiguous()
-        _collective(dist.broadcast, flat, src=0)
-        out, pos = [], 0
-        for t in tensors:
-            out.append(flat[pos:pos + t.numel()].reshape(t.shape)
-                       .to(t.dtype))
-            pos += t.numel()
+    def scatter(self, chunks, like: torch.Tensor, axis) -> torch.Tensor:
+        """Chunk i of the axis group's root (self.root(axis)) on the rank
+        at position i along the axis: chunks is the root's list of n
+        tensors shaped as `like` (None on the other ranks)."""
+        if self.axis_size(axis) == 1:
+            return chunks[0]
+        out = torch.empty_like(like)
+        src = self.root(axis)
+        got = 0 if self.rank == src else out.nbytes
+        _collective(dist.scatter, out, got, out,
+                    [c.contiguous() for c in chunks] if chunks else None,
+                    src=src, group=self._group(axis))
+        return out
+
+    def all_to_all(self, t: torch.Tensor, sends: list, recvs: list,
+                   axis) -> torch.Tensor:
+        """Rows of t (dim 0) to the ranks of the axis by position: sends[i]
+        rows to the rank at position i, recvs[i] rows from it, in position
+        order."""
+        me = self.axis_index(axis)
+        row = t[0].nbytes if t.shape[0] else 0
+        out = torch.empty((sum(recvs),) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        if self.axis_size(axis) == 1:
+            return out.copy_(t)
+        _collective(dist.all_to_all_single, out,
+                    row * (sum(recvs) - recvs[me]), out, t.contiguous(),
+                    list(recvs), list(sends), group=self._group(axis))
+        return out
+
+    def broadcast(self, tensors: list, axis=None) -> list:
+        """Global rank 0's values of the tensors, on every rank (axis
+        None) or on the ranks of its group of `axis` (called by those
+        only), in one collective per dtype: each tensor travels as
+        itself."""
+        group = None if axis is None else self._group(axis)
+        n = self.size if axis is None else self.axis_size(axis)
+        out = list(tensors)
+        if n == 1:
+            return out
+        for dt in dict.fromkeys(t.dtype for t in tensors):
+            idx = [i for i, t in enumerate(tensors) if t.dtype == dt]
+            flat = torch.cat([tensors[i].detach().reshape(-1)
+                              for i in idx]).contiguous()
+            _collective(dist.broadcast, flat,
+                        0 if self.rank == 0 else flat.nbytes, flat, src=0,
+                        group=group)
+            pos = 0
+            for i in idx:
+                k = tensors[i].numel()
+                out[i] = flat[pos:pos + k].reshape(tensors[i].shape)
+                pos += k
         return out
 
     def agree(self, flag) -> bool:
@@ -155,6 +213,17 @@ class Mesh:
         t = torch.tensor([1.0 if bool(flag) else 0.0], dtype=torch.float64,
                          device=self._flag_device)
         return bool(self.broadcast([t])[0].item())
+
+    def all_true(self, flag) -> bool:
+        """Whether a host flag holds on every rank of the mesh, the same
+        answer on every rank (an all-reduce MIN)."""
+        t = torch.tensor([1.0 if bool(flag) else 0.0], dtype=torch.float64,
+                         device=self._flag_device)
+        if self.size > 1:
+            _collective(dist.all_reduce, t,
+                        2 * t.nbytes * (self.size - 1) / self.size, t,
+                        op=dist.ReduceOp.MIN)
+        return bool(t.item())
 
 
 def make_mesh(n_devices: int | None = None, axis: str = BLOCK_AXIS,

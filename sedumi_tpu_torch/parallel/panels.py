@@ -23,11 +23,15 @@ phase of the precision ladder under a mesh) or raise.  The trailing
 update (a [nb_loc bs, bs] x [bs, mp] product), the strict-upper zeroing
 and ADA v are plain torch.
 
-The formation is the replicated (or data-split, mesh.ShardedAOp) build:
-every rank holds the whole padded matrix and factors its block-cyclic
-rows (natural block k on the rank k mod n of the axis).  dist_cholesky
-returns the factor in natural order on every rank, as the reference's
-global array; _dist_trisolve reads only the rank's contiguous row panel.
+The layout is the reference's: the matrix and its factor live in row
+panels, mp/n rows a rank, and no rank keeps the whole [mp, mp] matrix
+after prepare.  The formation is the replicated (or data-split,
+mesh.ShardedAOp) build, and global rank 0's matrix is the one factored:
+each rank receives, by one scatter, its BLOCK-CYCLIC row panel of the
+scaled matrix (natural block k on the rank k mod n of the axis), which
+dist_cholesky factors, and its CONTIGUOUS row panel of the padded ADA;
+dist_cholesky hands the factor back as contiguous row panels (one
+all-to-all), the layout _dist_trisolve and the refinement read.
 """
 
 from __future__ import annotations
@@ -80,14 +84,18 @@ def panel_chol_plain(C: torch.Tensor, j: int) -> torch.Tensor:
     return torch.where(k == j, Ljj[None], Lcol)
 
 
-def _panel_chol_kernel(C: torch.Tensor, j: int) -> torch.Tensor:
+def _panel_chol_kernel(C: torch.Tensor, j: int,
+                       ncta: int = 0) -> torch.Tensor:
+    """K14 on a grid of ncta CTAs (0: one wave of the card, a CTA a chunk
+    of 32 rows up to the CTAs resident at once); the result does not
+    depend on it."""
     sfx = _build(C)
     nb, bs, _ = C.shape
     if bs > 128:
         raise ValueError(f"panel_chol takes bs <= 128, got {bs}")
     Lcol = torch.empty_like(C)
     kernels.launch("panel_chol.cu", "panel_chol_launch" + sfx, C.data_ptr(),
-                   Lcol.data_ptr(), nb, bs, j)
+                   Lcol.data_ptr(), nb, bs, j, ncta)
     kernels.LAUNCHES["dist_panel_chol" + sfx] += 1
     return Lcol
 
@@ -201,26 +209,38 @@ def trisolve_bwd_solve(Ljj, bj, contrib) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def dist_cholesky(Mp: torch.Tensor, mesh: Mesh, axis: str,
+def cyclic_rows(n: int, my: int, nb_loc: int, bs: int, device=None):
+    """The rows of the block-cyclic panel of the rank at position my of n:
+    natural blocks my, my + n, ..., each bs rows (reference panels.py:47,
+    natural block k on device k mod n, local slot k // n)."""
+    g = torch.arange(nb_loc, device=device) * n + my
+    return (g[:, None] * bs + torch.arange(bs, device=device)).reshape(-1)
+
+
+def dist_cholesky(A: torch.Tensor, mesh: Mesh, axis: str,
                   bs: int) -> torch.Tensor:
     """Cholesky of an SPD matrix with BLOCK-CYCLIC row ownership
     (reference panels.py:47): natural block row k is factored by the rank
-    k mod n of the axis.  Mp: [mp, mp], mp divisible by n*bs, natural
-    order, the same on every rank.  Returns the lower L with L L' = Mp in
-    natural order on every rank (strict upper triangle exactly 0); no
-    pivoting, a non-PD matrix gives NaN."""
+    k mod n of the axis.  A: this rank's block-cyclic row panel
+    [nb_loc bs, mp] (the rows cyclic_rows gives) of the [mp, mp] matrix,
+    mp divisible by n*bs.  Returns this rank's CONTIGUOUS row panel of the
+    lower L with L L' = M (rows my nb_loc bs on, strict upper triangle
+    exactly 0), the layout _dist_trisolve reads: the cyclic panels are
+    redistributed by one all-to-all, each rank receiving only its rows.
+    A is overwritten (the trailing updates run in place on it).  No
+    pivoting; a non-PD matrix gives NaN."""
     n = mesh.axis_size(axis)
     my = mesh.axis_index(axis)
-    mp = Mp.shape[0]
+    mp = A.shape[1]
     nb = mp // bs
     nb_loc = nb // n
-    if nb_loc * n * bs != mp:
-        raise ValueError(f"mp = {mp} is not a multiple of n*bs = {n * bs}")
-    dev, dt = Mp.device, Mp.dtype
+    if nb_loc * n * bs != mp or A.shape[0] != nb_loc * bs:
+        raise ValueError(f"a panel [{A.shape[0]}, {mp}] of an mp = {mp} "
+                         f"matrix over n*bs = {n * bs}")
+    dev, dt = A.device, A.dtype
     g = [my + n * r for r in range(nb_loc)]     # natural block rows owned
     g_t = torch.tensor(g, device=dev)
-    rows = (g_t[:, None] * bs + torch.arange(bs, device=dev)).reshape(-1)
-    A = Mp[rows].reshape(nb_loc, bs, mp)
+    A = A.view(nb_loc, bs, mp)
     for j in range(nb):
         cols = slice(j * bs, (j + 1) * bs)
         colj = A[:, :, cols].contiguous()
@@ -246,28 +266,37 @@ def dist_cholesky(Mp: torch.Tensor, mesh: Mesh, axis: str,
     c_in = torch.arange(bs, device=dev)[None, None, None, :]
     keep = (kb < gb) | ((kb == gb) & (c_in <= r_in))
     Lloc = torch.where(keep, A4, torch.zeros((), dtype=dt, device=dev))
-    # natural order on every rank: rank d's slot r holds block r*n + d
-    full = mesh.all_gather(Lloc.reshape(nb_loc, bs, mp), axis)
-    return full.transpose(0, 1).reshape(mp, mp)
+    del A, A4
+    # cyclic -> contiguous: block k goes to the rank k // nb_loc.  This
+    # rank's blocks are ascending, so its rows leave in destination order;
+    # rank p's arrive source by source and are put in natural order.
+    sends = [sum(1 for k in g if k // nb_loc == p) * bs for p in range(n)]
+    arrive = [k for d in range(n) for k in range(d, nb, n)
+              if k // nb_loc == my]
+    recvs = [sum(1 for k in range(d, nb, n) if k // nb_loc == my) * bs
+             for d in range(n)]
+    got = mesh.all_to_all(Lloc.reshape(nb_loc * bs, mp), sends, recvs, axis)
+    order = torch.tensor(sorted(range(nb_loc), key=arrive.__getitem__),
+                         device=dev)
+    return got.reshape(nb_loc, bs, mp)[order].reshape(nb_loc * bs, mp)
 
 
-def _dist_trisolve(L: torch.Tensor, b: torch.Tensor, mesh: Mesh, axis: str,
+def _dist_trisolve(L3: torch.Tensor, b: torch.Tensor, mesh: Mesh, axis: str,
                    bs: int, lower: bool) -> torch.Tensor:
     """Solve L x = b (lower=True) or L' x = b (lower=False) with each rank
     of the axis owning a CONTIGUOUS row panel of L (reference panels.py:
     117): per block step the owner solves its bs-triangle and the result
     is broadcast by a masked psum; backward, every rank adds its partial
-    products and the owner its diagonal block in one psum.  L [mp, mp]
-    (only this rank's panel is read) and b [mp] the same on every rank;
-    returns x on every rank."""
+    products and the owner its diagonal block in one psum.  L3: this
+    rank's panel [nb_loc bs, mp] (dist_cholesky's result); b [mp] the same
+    on every rank; returns x on every rank."""
     n = mesh.axis_size(axis)
     my = mesh.axis_index(axis)
-    mp = L.shape[0]
+    mp = L3.shape[1]
     nb = mp // bs
     nb_loc = nb // n
     g0 = my * nb_loc
-    L3 = L[g0 * bs:(g0 + nb_loc) * bs]
-    x = torch.zeros(mp, dtype=L.dtype, device=L.device)
+    x = torch.zeros(mp, dtype=L3.dtype, device=L3.device)
     if lower:
         for j in range(nb):
             owner, r = divmod(j, nb_loc)
@@ -275,12 +304,12 @@ def _dist_trisolve(L: torch.Tensor, b: torch.Tensor, mesh: Mesh, axis: str,
                 xj = trisolve_fwd_step(L3[r * bs:(r + 1) * bs], x,
                                        b[j * bs:(j + 1) * bs], j)
             else:
-                xj = torch.zeros(bs, dtype=L.dtype, device=L.device)
+                xj = torch.zeros(bs, dtype=L3.dtype, device=L3.device)
             x[j * bs:(j + 1) * bs] = mesh.psum(xj, axis)
         return x
     for j in range(nb - 1, -1, -1):
         owner, r = divmod(j, nb_loc)
-        packed = torch.zeros(bs + 1, bs, dtype=L.dtype, device=L.device)
+        packed = torch.zeros(bs + 1, bs, dtype=L3.dtype, device=L3.device)
         packed[0] = trisolve_bwd_contrib(L3, x, bs, g0, j)
         if my == owner:
             packed[1:] = L3[r * bs:(r + 1) * bs, j * bs:(j + 1) * bs]
@@ -290,9 +319,32 @@ def _dist_trisolve(L: torch.Tensor, b: torch.Tensor, mesh: Mesh, axis: str,
     return x
 
 
+def scaled_padded(ADA: torch.Tensor, reg: float, mp: int):
+    """(Mpad, ADApad, dg) of prepare: ADA + reg*s*I (s the mean |diagonal|)
+    Jacobi-scaled by dg = sqrt(its diagonal), and ADA itself, each padded
+    with the identity to [mp, mp]."""
+    m, dt, dev = ADA.shape[0], ADA.dtype, ADA.device
+    tiny = torch.finfo(dt).tiny
+    scale = torch.mean(torch.abs(torch.diagonal(ADA))) + tiny
+    Mr = ADA + (reg * scale) * torch.eye(m, dtype=dt, device=dev)
+    dg = torch.sqrt(torch.clamp_min(torch.diagonal(Mr), tiny))
+    Mpad = torch.eye(mp, dtype=dt, device=dev)
+    Mpad[:m, :m] = Mr / (dg[:, None] * dg[None, :])
+    ADApad = torch.eye(mp, dtype=dt, device=dev)
+    ADApad[:m, :m] = ADA
+    return Mpad, ADApad, dg
+
+
+def all_finite(L3: torch.Tensor, mesh: Mesh) -> bool:
+    """Whether every rank's panel is finite: each rank checks its own and
+    the flags are reduced, so every rank gets the same answer."""
+    return mesh.all_true(bool(torch.all(torch.isfinite(L3))))
+
+
 class PanelCtx:
-    """Factorization context: the padded ADA and the factor (natural
-    order), the Jacobi scale, m and the padded size."""
+    """Factorization context: this rank's contiguous row panels [mp/n, mp]
+    of the padded ADA and of the factor (rows my mp/n on), the Jacobi
+    scale, m, the padded size and the block width."""
 
     def __init__(self, ADApad, L, dg, m, mp, bs):
         self.ADApad = ADApad
@@ -305,18 +357,26 @@ class PanelCtx:
 
 class PanelSchurEngine:
     """Linear-system backend with the Schur complement factored and solved
-    in panels over one mesh axis (the prepare/solve contract of
+    in row panels over one mesh axis (the prepare/solve contract of
     ipm.DenseSchurEngine; reference panels.py:192-272).
 
-    prepare() Jacobi-scales ADA + reg*s*I, pads it with the identity to a
-    multiple of n*bs and factors it with dist_cholesky; ok = every entry
-    of the gathered factor finite (the factor is the all-reduced global
-    one, so the flag agrees on every rank).  solve() runs the two
-    distributed substitutions and refine_iters refinement passes against
-    the padded ADA.  The Schur complement and each right-hand side are
-    global rank 0's, so the ranks solve one system; agree() makes a host
-    decision of the step rank 0's, so every rank takes the same branches
-    and issues the same collectives in the same order."""
+    prepare() forms the augmented Schur complement on every rank (split
+    over the data axes, mesh.ShardedAOp) and factors global rank 0's: the
+    root of each panel group (the rank at panel coordinate 0, which first
+    takes rank 0's values over the data axes when there are any)
+    Jacobi-scales ADA + reg*s*I, pads it with the identity to a multiple
+    of n*bs and scatters to each rank of the axis its block-cyclic row
+    panel of that matrix (for the factor) and its contiguous row panel of
+    the padded ADA (for the refinement); the last column of the augmented
+    matrix and the scale dg are broadcast whole.  No rank keeps an
+    [mp, mp] tensor.  dist_cholesky returns each rank's contiguous panel
+    of the factor; ok = every rank's panel finite, agreed by all.  solve()
+    runs the two distributed substitutions and refine_iters refinement
+    passes against the padded ADA (each rank's panel times x,
+    all-gathered).  Each right-hand side is rank 0's too, so the ranks
+    solve one system; agree() makes a host decision of the step rank 0's,
+    so every rank takes the same branches and issues the same collectives
+    in the same order."""
 
     def __init__(self, mesh: Mesh, axis: str = "blocks", bs: int | None = None,
                  refine_iters: int = 2, factor_dtype=None):
@@ -343,33 +403,53 @@ class PanelSchurEngine:
     def prepare(self, aop, S, reg):
         m = aop.m
         bs = self._bs_for(m)
+        mesh, axis, n = self.mesh, self.axis, self.n
+        mp = _pad_up(m, n * bs)
+        rows = mp // n
+        Maug = build_schur(aop, S)
+        dt = self.factor_dtype or Maug.dtype
         # every rank factors global rank 0's matrix: on the card each rank's
         # formation rounds differently (atomic sums), and a factor built
         # from rows of different matrices wanders in the endgame
-        Maug = self.mesh.broadcast([build_schur(aop, S)])[0]
-        ADA = Maug[:m, :m]
-        if self.factor_dtype is not None and self.factor_dtype != ADA.dtype:
-            ADA = ADA.to(self.factor_dtype)
-        dt, dev = ADA.dtype, ADA.device
-        tiny = torch.finfo(dt).tiny
-        scale = torch.mean(torch.abs(torch.diagonal(ADA))) + tiny
-        mp = _pad_up(m, self.n * bs)
-        Mr = ADA + (reg * scale) * torch.eye(m, dtype=dt, device=dev)
-        dg = torch.sqrt(torch.clamp_min(torch.diagonal(Mr), tiny))
-        Mpad = torch.eye(mp, dtype=dt, device=dev)
-        Mpad[:m, :m] = Mr / (dg[:, None] * dg[None, :])
-        ADApad = torch.eye(mp, dtype=dt, device=dev)
-        ADApad[:m, :m] = ADA
-        L = dist_cholesky(Mpad, self.mesh, self.axis, bs)
-        ok = bool(torch.all(torch.isfinite(L)))
-        return PanelCtx(ADApad, L, dg, m, mp, bs), Maug[:m, m], \
-            Maug[m, m], ok
+        chunks = None
+        if mesh.axis_index(axis) == 0:
+            data = tuple(a for a in mesh.axis_names if a != axis)
+            if data and mesh.axis_size(data) > 1:
+                Maug = mesh.broadcast([Maug], axis=data)[0]
+            Mpad, ADApad, dg = scaled_padded(Maug[:m, :m].to(dt), reg, mp)
+            chunks = [torch.stack([Mpad[cyclic_rows(n, d, rows // bs, bs,
+                                                    Mpad.device)],
+                                   ADApad[d * rows:(d + 1) * rows]])
+                      for d in range(n)]
+            del Mpad, ADApad
+        else:
+            dg = torch.empty(m, dtype=dt, device=Maug.device)
+        ahc, chc, dg = mesh.broadcast([Maug[:m, m].clone(), Maug[m, m].clone(),
+                                       dg])
+        like = torch.empty(2, rows, mp, dtype=dt, device=Maug.device)
+        del Maug
+        panels = mesh.scatter(chunks, like, axis)
+        del chunks, like
+        # the context's ADA panel gets a storage of its own, so the factor's
+        # panel (overwritten by dist_cholesky) is freed once it is factored
+        Mloc, ADAloc = panels[0], panels[1].clone()
+        del panels
+        L = dist_cholesky(Mloc, mesh, axis, bs)
+        del Mloc
+        ok = all_finite(L, mesh)
+        return PanelCtx(ADAloc, L, dg, m, mp, bs), ahc, chc, ok
 
     def _base_solve(self, ctx: PanelCtx, rhs_pad):
         y = _dist_trisolve(ctx.L, rhs_pad, self.mesh, self.axis, ctx.bs,
                            lower=True)
         return _dist_trisolve(ctx.L, y, self.mesh, self.axis, ctx.bs,
                               lower=False)
+
+    def _matvec(self, ctx: PanelCtx, x: torch.Tensor) -> torch.Tensor:
+        """ADApad x on every rank: each rank's panel rows, all-gathered
+        (the reference's panel GEMM, panels.py:263-266)."""
+        return self.mesh.all_gather(torch.mv(ctx.ADApad, x),
+                                    self.axis).reshape(-1)
 
     def solve(self, ctx: PanelCtx, rhs: torch.Tensor) -> torch.Tensor:
         m, mp, dt = ctx.m, ctx.mp, ctx.L.dtype
@@ -380,6 +460,6 @@ class PanelSchurEngine:
         b[:m] = rhs.to(dt)
         x = self._base_solve(ctx, b / dgp) / dgp
         for _ in range(self.refine_iters):
-            r = b - torch.mv(ctx.ADApad, x)
+            r = b - self._matvec(ctx, x)
             x = x + self._base_solve(ctx, r / dgp) / dgp
         return x[:m].to(rhs.dtype)

@@ -19,6 +19,10 @@ step (one rounding per product and per sum, as the kernels do under nvcc
 The group sizes fix every sum's order whatever the kernels' grid, so on
 the CPU these show what the kernels compute against the plain versions and
 the reference, and on the card the kernels are held to them bit for bit.
+The kernels form their quotients by one reciprocal and two fma
+corrections (csrc/div_rn.cuh), the IEEE quotient bit for bit where that
+rule's range holds and the division itself where it does not, and K14's
+one-launch schedule keeps every entry's order; so the emulation divides.
 
 Two modes, by the inputs' dtype (all alike): float64 emulates K14/K15,
 float32 their f32 builds K14-f32/K15-f32 (the f32 phase of the precision
@@ -107,19 +111,27 @@ def bwd_solve(Ljj: torch.Tensor, bj: torch.Tensor,
     return emu.bwd_diag(Ljj, bj - contrib)
 
 
-def dist_cholesky(M: torch.Tensor, bs: int) -> torch.Tensor:
+def dist_cholesky(M: torch.Tensor, bs: int, step=None,
+                  n: int = 1) -> torch.Tensor:
     """The block-cyclic factor's arithmetic in one process: per block
-    column K14's step, then dist_cholesky's trailing update (torch) on the
-    rows below; the strict upper triangle 0."""
+    column K14's step (or `step(C, j)`: the CPU path's plain version),
+    then dist_cholesky's trailing update (torch) on the rows below, one
+    product for each of n ranks' block-cyclic rows as the port forms it
+    (a library product's sums may depend on its row count); the strict
+    upper triangle 0.  With the port's n, rank p's contiguous panel of
+    its factor is rows p mp/n on of this, bit for bit."""
+    step = step or chol_column
     mp = M.shape[0]
     nb = mp // bs
     A = M.clone().reshape(nb, bs, mp)
     for j in range(nb):
         cols = slice(j * bs, (j + 1) * bs)
-        Lcol = chol_column(A[:, :, cols].contiguous(), j)
-        if j + 1 < nb:
-            W = Lcol.reshape(mp, bs)
-            A[j + 1:] -= torch.einsum("rab,kb->rak", Lcol[j + 1:], W)
+        Lcol = step(A[:, :, cols].contiguous(), j)
+        W = Lcol.reshape(mp, bs)
+        for d in range(n):
+            rows = [g for g in range(d, nb, n) if g > j]
+            if rows:
+                A[rows] -= torch.einsum("rab,kb->rak", Lcol[rows], W)
         A[j:, :, cols] = Lcol[j:]
     return torch.tril(A.reshape(mp, mp))
 

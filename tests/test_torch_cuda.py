@@ -1641,7 +1641,9 @@ def test_panel_kernels_match_emulation(cuda, bs):
     fails in its last pivot) and K15 in the two-panel substitution and
     step by step, bit for bit equal to tests/panel_emulation.py, at the
     widths _bs_for yields and at 48 (a short last panel); two calls agree
-    bit for bit, and K15's sums do not depend on the cluster's size (1,
+    bit for bit, K14's result does not depend on its grid (1 and 3 CTAs,
+    each then solving several chunks of rows against its Ljj, against
+    one a chunk), and K15's sums do not depend on the cluster's size (1,
     3 and 8 CTAs against the default)."""
     _panel_emulation_case(cuda, bs, torch.float64)
 
@@ -1692,11 +1694,15 @@ def _panel_emulation_case(cuda, bs, dtype):
         got = pn.panel_chol_step(C, j)
         assert bits_equal(got.cpu(), pe.chol_column(C.cpu(), j)), j
         assert bits_equal(got, pn.panel_chol_step(C, j)), j
+        for ncta in (1, 3):     # CTAs with several chunks (rows_solve)
+            assert bits_equal(pn._panel_chol_kernel(C, j, ncta), got), \
+                (j, ncta)
     bad = Cs[4].clone()
     bad[4, bs - 1, bs - 1] = -1.0
     got = pn.panel_chol_step(bad, 4)
     assert bits_equal(got.cpu(), pe.chol_column(bad.cpu(), 4))
     assert torch.isnan(got[4:]).all() and (got[:4] == 0).all()
+    assert bits_equal(pn._panel_chol_kernel(bad, 4, 1), got)
     b = torch.randn(mp, generator=gen, dtype=torch.float64).to(dtype) \
         .to(cuda)
     x = panel_chain(L, b, bs, 2, pn.trisolve_fwd_step,
@@ -1729,10 +1735,44 @@ def _panel_emulation_case(cuda, bs, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,scale", [(torch.float32, 2.0**-100),
+                                         (torch.float32, 2.0**-112),
+                                         (torch.float64, 2.0**-990)])
+def test_panel_kernels_division_fallback(cuda, dtype, scale):
+    """Where the reciprocal rule's range (div_rn.cuh) fails for a quotient
+    (a matrix scaled by 2^-100 or 2^-112 in f32, 2^-990 in f64: numerators
+    below its bound), K14 runs its column (or a later chunk of rows, on
+    one CTA) again with the division and K15's triangles their panel:
+    still bit for bit the emulation, with the finite factor of the scaled
+    matrix."""
+    import panel_emulation as pe
+    from chip_smoke import PANEL_CASE, panel_chain, panel_columns, panel_spd
+    from sedumi_tpu_torch.parallel import panels as pn
+
+    bs, nb = 64, 4
+    mp = nb * bs
+    gen = torch.Generator().manual_seed(17)
+    M = panel_spd(mp, gen, "cpu", torch.float64,
+                  PANEL_CASE[dtype]["cond"]) * scale
+    Cs, L = panel_columns(M.to(dtype).to(cuda), bs)
+    for j in (0, nb - 1):
+        got = pn.panel_chol_step(Cs[j], j)
+        assert bits_equal(got.cpu(), pe.chol_column(Cs[j].cpu(), j)), j
+        assert torch.isfinite(got).all(), j
+        assert bits_equal(pn._panel_chol_kernel(Cs[j], j, 1), got), j
+    b = (torch.randn(mp, generator=gen, dtype=torch.float64)
+         * scale).to(dtype).to(cuda)
+    x = panel_chain(L, b, bs, 2, pn.trisolve_fwd_step,
+                    pn.trisolve_bwd_contrib, pn.trisolve_bwd_solve)
+    assert bits_equal(x.cpu(), pe.dist_solve(L.cpu(), b.cpu(), bs, 2))
+
+
+@pytest.mark.cuda
 def test_panel_kernels_refuse_shapes(cuda):
     """What K14/K15 do not take raises and counts no launch, with no
     fallback to the plain versions: bs above 128 in the wrappers; in the
-    launches a block row past mp, a cluster of more than 8 CTAs and a
+    launches a block row past mp, a cluster of more than 8 CTAs, an f64
+    panel off a 16-byte boundary (the f64 contribution's loads) and a
     block column past the matrix."""
     from sedumi_tpu_torch.parallel import panels as pn
 
@@ -1751,10 +1791,13 @@ def test_panel_kernels_refuse_shapes(cuda):
         pn._fwd_step_kernel(row, x, bj, 1, ncta=9)
     with pytest.raises(RuntimeError):
         pn._bwd_contrib_kernel(row, x, 16, 0, 0, ncta=9)
+    with pytest.raises(RuntimeError):
+        pn._bwd_contrib_kernel(torch.zeros(16 * 64 + 1, **f64)[1:]
+                               .view(16, 64), x, 16, 0, 0)
     C = torch.zeros(2, 16, 16, **f64)
     with pytest.raises(RuntimeError):
         kernels.launch("panel_chol.cu", "panel_chol_launch", C.data_ptr(),
-                       C.data_ptr(), 2, 16, 2)
+                       C.data_ptr(), 2, 16, 2, 0)
     assert kernels.LAUNCHES == before
 
 

@@ -5,10 +5,14 @@ The port runs on 4 gloo ranks (parallel.launch.run_spmd, one spawn for the
 whole module); the reference on make_mesh(4) of the suite's 8 virtual
 devices, so both split the same way.  Inputs come from numpy with a seed
 and go to both packages.  Mirrors tests/test_panels.py, plus the plain
-versions of kernels K14/K15 against numpy and the non-PD case, and the
-panel engine in the precision ladder's phases under a mesh (formed,
-factored and solved in f32; formed in f32 with an f64 factor) against the
-port's dense engine in the same dtypes.
+versions of kernels K14/K15 against numpy and the non-PD case, the panel
+layout (each rank keeps [mp/n, mp] row panels of the factor and of the
+padded ADA, bit for bit the rows of the factor emulated in one process;
+the factor's finiteness agreed by all ranks), and the panel engine in the
+precision ladder's phases under a mesh (formed, factored and solved in
+f32; formed in f32 with an f64 factor) against the reference's engine and
+the port's dense engine in the same dtypes.  The factor tests gather the
+ranks' panels into the whole factor (entry.rank_panel_jobs does).
 """
 
 import sys
@@ -24,6 +28,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import __graft_entry__ as ge  # noqa: E402
+import jax  # noqa: E402
+import panel_emulation as pe  # noqa: E402
 from sedumi_tpu import nt as jnt  # noqa: E402
 from sedumi_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
 from sedumi_tpu.parallel import panels as jpanels  # noqa: E402
@@ -78,6 +84,7 @@ def case():
             ("engine", aop_np, S_np, reg, rhs, 4)]
     jobs += [("engine", aop_np, S_np, reg, rhs, 4, "float32", fdt)
              for fdt in (None, "float64")]
+    jobs += [("finite", 32, 4, bad) for bad in (-1, 2)]
     port = run_spmd(entry.rank_panel_jobs, N, args=(jobs, "cpu"),
                     device="cpu", timeout_s=240)
     mesh = jmake_mesh(N)
@@ -96,6 +103,14 @@ def case():
     ctx, ahc, chc, ok = eng.prepare(aop, S, reg)
     ref["engine"] = (np.asarray(ahc), float(chc), bool(ok),
                      np.asarray(eng.solve(ctx, jnp.asarray(rhs))))
+    # the ladder's phases: formed in f32, factored in f32 or f64
+    aop32, S32 = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float32), (aop, S))
+    for fdt in (None, jnp.float64):
+        eng = jpanels.PanelSchurEngine(mesh, bs=4, factor_dtype=fdt)
+        ctx, _, _, ok = eng.prepare(aop32, S32, reg)
+        ref[("engine32", fdt is not None)] = (bool(ok), np.asarray(
+            eng.solve(ctx, jnp.asarray(rhs, jnp.float32))))
     return dict(M_chol=M_chol, M_solve=M_solve, b_solve=b_solve,
                 aop_np=aop_np, S_np=S_np, reg=reg, rhs=rhs, port=port,
                 ref=ref)
@@ -105,7 +120,7 @@ def test_dist_cholesky_matches_reference(case):
     """Sums in another order: within cond * m * eps of max|L|."""
     L_ref = case["ref"]["chol"]
     for r, out in enumerate(case["port"]):
-        L = out[0]
+        L = out[0]["L"]
         assert np.abs(L - L_ref).max() <= 1e-10 * np.abs(L_ref).max(), r
 
 
@@ -114,7 +129,7 @@ def test_dist_cholesky_matches_lapack(case):
     0, on every rank."""
     Lref = np.linalg.cholesky(case["M_chol"])
     for out in case["port"]:
-        L = out[0]
+        L = out[0]["L"]
         assert np.allclose(L, Lref, rtol=0, atol=1e-9 * np.abs(Lref).max())
         assert np.all(np.triu(L, 1) == 0.0)
 
@@ -134,7 +149,7 @@ def test_non_pd_matrix_gives_nan_in_both_packages(case):
     bad_ref = case["ref"]["bad"]
     assert not np.all(np.isfinite(bad_ref))
     for out in case["port"]:
-        L = out[2]
+        L = out[2]["L"]
         assert not np.all(np.isfinite(L))
         # the columns before the failed block are the good factor's
         np.testing.assert_array_equal(np.isfinite(L[:, :40]),
@@ -146,7 +161,7 @@ def test_panel_engine_matches_reference(case):
     its _small_problem(4, 4, 24, seed=1) and NT scaling."""
     ahc_r, chc_r, ok_r, x_r = case["ref"]["engine"]
     for out in case["port"]:
-        ahc, chc, ok, x = out[3]
+        ahc, chc, ok, x, _ = out[3]
         assert ok and ok_r
         assert np.abs(ahc - ahc_r).max() <= 1e-12 * max(
             1.0, np.abs(ahc_r).max())
@@ -162,7 +177,7 @@ def test_panel_engine_matches_dense_engine(case):
     dense = DenseSchurEngine()
     ctx, ahc_d, chc_d, ok_d = dense.prepare(aop, S, case["reg"])
     x_d = dense.solve(ctx, torch.as_tensor(case["rhs"])).numpy()
-    ahc, chc, ok, x = case["port"][0][3]
+    ahc, chc, ok, x, _ = case["port"][0][3]
     assert ok_d and ok
     assert np.allclose(ahc, ahc_d.numpy(), atol=1e-10)
     assert np.allclose(float(chc), float(chc_d), atol=1e-10)
@@ -191,7 +206,7 @@ def test_panel_engine_ladder_phases_match_dense_engine(case, k, fdt, tol):
     ctx, ahc_d, chc_d, ok_d = dense.prepare(aop, S, case["reg"])
     x_d = dense.solve(ctx, torch.as_tensor(case["rhs"], dtype=f32)).numpy()
     for out in case["port"]:
-        ahc, chc, ok, x = out[k]
+        ahc, chc, ok, x, _ = out[k]
         assert ok and ok_d
         assert x.dtype == np.float32 and ahc.dtype == np.float32
         amax = max(1.0, float(ahc_d.abs().max()))
@@ -200,6 +215,72 @@ def test_panel_engine_ladder_phases_match_dense_engine(case, k, fdt, tol):
             1.0, abs(float(chc_d)))
         assert np.abs(x - x_d).max() <= tol * np.abs(x_d).max()
         np.testing.assert_array_equal(x, case["port"][0][k][3])
+
+
+def test_factor_panels_are_rows_of_the_emulated_factor(case):
+    """dist_cholesky hands each rank only its contiguous row panel
+    [mp/n, mp] of the factor: rank p's is rows p mp/n on of the
+    block-cyclic factor emulated in one process
+    (panel_emulation.dist_cholesky with the CPU path's step, the plain
+    version, and the port's trailing products over N ranks), bit for
+    bit."""
+    M = torch.as_tensor(case["M_chol"])
+    mp = M.shape[0]
+    L_emu = pe.dist_cholesky(M, 8, step=tpanels.panel_chol_plain,
+                             n=N).numpy()
+    for p, out in enumerate(case["port"]):
+        panel = out[0]["panel"]
+        assert panel.shape == (mp // N, mp)
+        np.testing.assert_array_equal(panel, L_emu[p * mp // N:
+                                                   (p + 1) * mp // N])
+
+
+@pytest.mark.parametrize("k", [3, 4, 5])
+def test_engine_context_keeps_row_panels(case, k):
+    """After prepare every rank holds [mp/n, mp] row panels of the factor
+    and of the padded ADA, in f64, f32 and the hybrid phase's f64 factor
+    of an f32 formation, each in a storage of its own size; the ADA
+    panels gather to one padded matrix (the identity beyond m), and each
+    factor panel is the rows of the factor emulated in one process from
+    that matrix, scaled as prepare scales it, bit for bit."""
+    ctxs = [out[k][4] for out in case["port"]]
+    mp, m = int(ctxs[0]["mp"]), len(case["rhs"])
+    for c in ctxs:
+        assert c["L"].shape == c["ADApad"].shape == (mp // N, mp)
+        # each panel owns its storage: no view keeps a larger buffer alive
+        assert c["storage"] == [c["L"].nbytes, c["ADApad"].nbytes]
+    ADApad = torch.as_tensor(np.concatenate([c["ADApad"] for c in ctxs]))
+    np.testing.assert_array_equal(ADApad[m:].numpy(),
+                                  np.eye(mp)[m:].astype(ADApad.numpy().dtype))
+    Mpad, _, dg = tpanels.scaled_padded(ADApad[:m, :m], case["reg"], mp)
+    np.testing.assert_array_equal(dg.numpy(), ctxs[0]["dg"])
+    L_emu = pe.dist_cholesky(Mpad, 4, step=tpanels.panel_chol_plain,
+                             n=N).numpy()
+    for p, c in enumerate(ctxs):
+        np.testing.assert_array_equal(c["L"], L_emu[p * mp // N:
+                                                    (p + 1) * mp // N])
+
+
+@pytest.mark.parametrize("k,hybrid,tol", [(4, False, 1e-5), (5, True, 1e-6)])
+def test_panel_engine_ladder_phases_match_reference(case, k, hybrid, tol):
+    """The f32 phase (formed, factored and solved in f32) and the hybrid
+    phase's f64 factor of an f32 formation against the reference's
+    PanelSchurEngine in the same dtypes, at the tolerances the port's
+    dense engine is held to (test_panel_engine_ladder_phases_match_dense_
+    engine)."""
+    ok_r, x_r = case["ref"][("engine32", hybrid)]
+    for out in case["port"]:
+        _, _, ok, x, _ = out[k]
+        assert ok and ok_r and x.dtype == x_r.dtype == np.float32
+        assert np.abs(x - x_r).max() <= tol * np.abs(x_r).max()
+
+
+def test_one_rank_with_a_nan_panel_fails_ok_on_every_rank(case):
+    """all_finite, the engine's ok: each rank checks its own panel and the
+    flags are reduced, so a NaN in rank 2's panel alone gives False on
+    every rank, and finite panels True on every rank."""
+    assert [out[6] for out in case["port"]] == [True] * N
+    assert [out[7] for out in case["port"]] == [False] * N
 
 
 @pytest.mark.parametrize("j", [0, 2, 4])

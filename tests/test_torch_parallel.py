@@ -54,7 +54,8 @@ def spmd():
              ("rank_sedumi", (E2E, {"fid": 0,
                                     "mesh_shape": {"hosts": 2,
                                                    "panels": 2}})),
-             ("rank_sedumi", (E2E, MIXED_MESH))]
+             ("rank_sedumi", (E2E, MIXED_MESH)),
+             ("rank_collectives", (5,))]
     return run_spmd(entry.rank_batch, N, args=(calls, "cpu"), device="cpu",
                     timeout_s=300)
 
@@ -173,6 +174,46 @@ def test_mixed_ladder_under_a_mesh(spmd, unsharded_mixed):
         np.testing.assert_array_equal(q["x"], p["x"])
         np.testing.assert_array_equal(q["y"], p["y"])
         assert q["info"] == p["info"] and q["phases"] == p["phases"]
+
+
+def test_all_gather_is_the_masked_psum(spmd):
+    """Mesh.all_gather (one all-gather into one tensor) returns what the
+    masked psum it replaced returned (each rank's tensor in its slot of a
+    zero-filled buffer, all-reduced), on finite nonzero inputs, over the
+    world and over one axis of {"hosts": 2, "panels": 2}; every rank
+    gets the same."""
+    for key in ("world", "panels"):
+        for r in spmd:
+            got, want = r[5][key]
+            assert got.shape == want.shape and got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+            assert np.all(got != 0)
+        assert np.array_equal(spmd[0][5]["world"][0], spmd[3][5]["world"][0])
+
+
+def test_broadcast_sends_each_dtype_as_itself(spmd):
+    """Mesh.broadcast gives rank 0's f32, f64 and int64 tensors on every
+    rank, each in its own dtype and bit for bit, in one collective per
+    dtype (three here); the f64 packing it replaced gave the same f32
+    bits (f32 -> f64 -> f32 is exact), but not int64's beyond 2^53."""
+    sent = spmd[0][5]["broadcast"][0]
+    for r in spmd:
+        mine, got, calls = r[5]["broadcast"]
+        assert calls == 3
+        for a, b, m in zip(got, sent, mine):
+            assert a.dtype == b.dtype == m.dtype and a.shape == m.shape
+            np.testing.assert_array_equal(a, b)
+    for t in (sent[0], sent[3]):
+        np.testing.assert_array_equal(t.astype(np.float64)
+                                      .astype(np.float32), t)
+    assert not np.array_equal(sent[2].astype(np.float64).astype(np.int64),
+                              sent[2])
+
+
+def test_all_true_is_one_answer_on_every_rank(spmd):
+    """Mesh.all_true (the panel engine's agreed ok): True where every rank
+    holds, False on every rank where rank 1 alone does not."""
+    assert [r[5]["all_true"] for r in spmd] == [(True, False)] * N
 
 
 @pytest.mark.slow
